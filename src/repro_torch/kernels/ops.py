@@ -1,0 +1,50 @@
+"""Model-facing wrappers around the hand kernels.
+
+They adapt model-layer shapes to kernel layouts (GQA expansion, head
+flattening).  A CPU tensor goes to the kernel's plain PyTorch version, a
+CUDA tensor to the kernel; there is no other fallback.  The TPU wrappers'
+divisibility rules do not apply: the CUDA kernels mask ragged edges.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .flash_attention import flash_attention
+from .persistent_matmul import persistent_matmul
+from .ref import flash_attention_ref, matmul_ref
+
+__all__ = ["pinned_matmul", "mha_flash"]
+
+
+def _pick_block(n: int, target: int) -> int:
+    """The TPU wrapper's block choice: the largest divisor of n <= target."""
+    b = min(target, n)
+    while n % b:
+        b -= 1
+    return max(b, 1)
+
+
+def pinned_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                  n_bands: Optional[int] = None) -> torch.Tensor:
+    """x [M, K] @ w [K, N] on the task's ``n_bands`` SMs (all SMs if None)."""
+    if x.device.type == "cpu":
+        return matmul_ref(x, w)
+    return persistent_matmul(x, w, n_bands)
+
+
+def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              scale: float, window: Optional[int] = None) -> torch.Tensor:
+    """q: [B, S, H, hd]; k/v: [B, S, Hkv, hd] -> [B, S, H*hd]."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    qf = q.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    attend = flash_attention_ref if q.device.type == "cpu" else flash_attention
+    out = attend(qf, kf, vf, scale=scale, window=window)
+    return out.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)

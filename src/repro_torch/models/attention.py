@@ -1,0 +1,128 @@
+"""Grouped-query self-attention: prefill and decode-with-cache paths.
+
+Counterpart of the self-attention part of ``repro.models.attention``: GQA
+(any n_heads/n_kv_heads ratio), qk-norm (Qwen3), half-split rotary, causal
+and sliding-window masking.  Prefill attention runs through
+``kernels.ops.mha_flash`` at every sequence length (the hand flash kernel
+on the card); decode attention, one query over the cache, stays plain
+PyTorch, as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+
+from .layers import _weight, apply_rotary, dense, init_dense, rms_norm, rotary_cos_sin
+
+__all__ = ["KVCache", "Attention", "attention_prefill", "attention_decode"]
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [B, S, n_kv, hd]
+    v: torch.Tensor  # [B, S, n_kv, hd]
+
+
+class Attention(nn.Module):
+    """wq [d, H*hd], wk/wv [d, Hkv*hd], wo [H*hd, d]; q_norm/k_norm [hd]."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.head_dim
+        self.wq = _weight((d, cfg.n_heads * hd), dtype, device)
+        self.wk = _weight((d, cfg.n_kv_heads * hd), dtype, device)
+        self.wv = _weight((d, cfg.n_kv_heads * hd), dtype, device)
+        self.wo = _weight((cfg.n_heads * hd, d), dtype, device)
+        self.qk_norm = cfg.qk_norm
+        if cfg.qk_norm:
+            self.q_norm = _weight((hd,), dtype, device)
+            self.k_norm = _weight((hd,), dtype, device)
+
+    def init(self, gen: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            init_dense(w, gen)
+        if self.qk_norm:
+            self.q_norm.fill_(1.0)
+            self.k_norm.fill_(1.0)
+
+
+def _split_heads(x, n, hd):
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _qkv(params: Attention, cfg, x, positions):
+    hd = cfg.head_dim
+    q = _split_heads(dense(x, params.wq), cfg.n_heads, hd)
+    k = _split_heads(dense(x, params.wk), cfg.n_kv_heads, hd)
+    v = _split_heads(dense(x, params.wv), cfg.n_kv_heads, hd)
+    if params.qk_norm:
+        q = rms_norm(q, params.q_norm)
+        k = rms_norm(k, params.k_norm)
+    cos, sin = rotary_cos_sin(positions, hd, cfg.rope_theta)
+    return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
+
+
+def _expand_kv(k, group: int):
+    """GQA: repeat each KV head ``group`` times on the head axis."""
+    return k if group == 1 else k.repeat_interleave(group, dim=2)
+
+
+def _sdpa_small(q, k, v, mask, scale):
+    """Materialized-logits attention (decode: one query over the cache).
+
+    q: [B,Sq,H,hd]; k/v: [B,Sk,Hkv,hd]; mask: [B,Sq,Sk] or None."""
+    b, sq, h, hd = q.shape
+    group = h // k.shape[2]
+    k = _expand_kv(k, group)
+    v = _expand_kv(v, group)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None, :, :], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(v.dtype)
+    return out.reshape(b, sq, h * hd)
+
+
+def _causal_attention(q, k, v, scale, window):
+    """Prefill attention: the hand flash kernel on the card, its plain
+    version on the CPU, at every sequence length."""
+    return ops.mha_flash(q, k, v, scale=scale, window=window)
+
+
+def attention_prefill(params: Attention, cfg, x, window: Optional[int] = None):
+    """Returns (output, KVCache) for subsequent decode."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    q, k, v = _qkv(params, cfg, x, positions)
+    out = _causal_attention(q, k, v, cfg.head_dim ** -0.5, window)
+    return dense(out, params.wo), KVCache(k=k, v=v)
+
+
+def attention_decode(params: Attention, cfg, x, cache: KVCache, cache_len,
+                     window: Optional[int] = None):
+    """One-token decode: x [B,1,D]; cache holds S_max past positions.
+
+    ``cache_len`` [B] int — number of valid positions.  The new token is
+    written at clip(cache_len, 0, S_max-1).  Unlike the JAX version, which
+    returns a new buffer, the write is in place: ``cache`` is updated and
+    returned."""
+    b, one, _ = x.shape
+    if one != 1:
+        raise ValueError("attention_decode takes one token per row")
+    s_max = cache.k.shape[1]
+    q, k_new, v_new = _qkv(params, cfg, x, cache_len[:, None])
+
+    rows = torch.arange(b, device=x.device)
+    slot = cache_len.clamp(0, s_max - 1)
+    cache.k[rows, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[rows, slot] = v_new[:, 0].to(cache.v.dtype)
+
+    kj = torch.arange(s_max, device=x.device)[None, :]  # [1, S]
+    valid = kj <= cache_len[:, None]  # include the just-written slot
+    if window is not None:
+        valid &= kj > cache_len[:, None] - window
+    out = _sdpa_small(q, cache.k, cache.v, valid[:, None, :], cfg.head_dim ** -0.5)
+    return dense(out, params.wo), cache

@@ -1,0 +1,112 @@
+"""Model: a decoder of per-layer modules, with prefill and decode entry points.
+
+Counterpart of ``repro.models.model.Model`` for attn+mlp decoders.  The JAX
+model scans stacked repeats; here ``layers`` is a ``ModuleList`` with one
+:class:`Block` per layer (layer ``r * len(pattern) + pos`` is pattern
+position ``pos`` of repeat ``r``).  Parameter names follow the JAX tree:
+``embed.w``, ``final_norm.w``, ``layers.<i>.mixer.wq``, ... .
+
+Entry points:
+  init_params(seed) / init_caches(batch, max_len)
+  prefill(tokens, caches)                  -> (last_logits, caches)
+  decode_step(token, caches, cache_len)    -> (logits, caches)
+
+Caches are written in place.  Every projection runs on all SMs; training
+waits for a later slice.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .blocks import Block, block_decode, block_prefill, init_block, init_block_cache
+from .config import ModelConfig
+from .layers import Norm, _weight, apply_norm, init_embedding, init_norm
+
+__all__ = ["Model", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """The requested device; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain versions on the CPU")
+    return device
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        if cfg.is_encoder_decoder or cfg.n_patches:
+            raise NotImplementedError(
+                "encoders and patch inputs are not ported yet: ROADMAP "
+                "'Modules to port' (whisper-base, internvl2-2b)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        d, dt, dev = cfg.d_model, self.dtype, self.device
+        self.embed = nn.ParameterDict({"w": _weight((cfg.vocab, d), dt, dev)})
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.ParameterDict({"w": _weight((cfg.vocab, d), dt, dev)})
+        self.final_norm = Norm(cfg.norm, d, dt, dev)
+        self.layers = nn.ModuleList(
+            Block(cfg, self._spec(i), dt, dev) for i in range(cfg.n_layers)
+        )
+
+    def _spec(self, layer: int):
+        return self.cfg.pattern[layer % len(self.cfg.pattern)]
+
+    # ------------------------------------------------------------------ init
+
+    @torch.no_grad()
+    def init_params(self, seed: int = 0) -> None:
+        """Random weights from a ``torch.Generator`` seeded with ``seed``
+        (the JAX package's scales; not its random bits)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        init_embedding(self.embed["w"], gen)
+        if not self.cfg.tie_embeddings:
+            init_embedding(self.lm_head["w"], gen)
+        init_norm(self.final_norm)
+        for block in self.layers:
+            init_block(block, gen)
+
+    def init_caches(self, batch: int, max_len: int) -> list[dict]:
+        return [
+            init_block_cache(self.cfg, self._spec(i), batch, max_len, self.dtype,
+                             self.device)
+            for i in range(self.cfg.n_layers)
+        ]
+
+    # ----------------------------------------------------------------- embed
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed["w"][tokens.long()]
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        head = self.lm_head if not self.cfg.tie_embeddings else self.embed
+        return x @ head["w"].T
+
+    # --------------------------------------------------------------- serving
+
+    def prefill(self, tokens: torch.Tensor, caches: list[dict]):
+        """tokens: [B, S]; fills the caches; returns logits of the last
+        position [B, 1, V] and the caches."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        for i, block in enumerate(self.layers):
+            x, caches[i] = block_prefill(block, cfg, self._spec(i), x, caches[i],
+                                         cfg.sliding_window)
+        x = apply_norm(self.final_norm, x, cfg.norm)
+        return self._logits(x[:, -1:]), caches
+
+    def decode_step(self, token: torch.Tensor, caches: list[dict],
+                    cache_len: torch.Tensor):
+        """token: [B, 1]; cache_len: [B] valid entries per row."""
+        cfg = self.cfg
+        x = self._embed(token)
+        for i, block in enumerate(self.layers):
+            x, caches[i] = block_decode(block, cfg, self._spec(i), x, caches[i],
+                                        cache_len, cfg.sliding_window)
+        x = apply_norm(self.final_norm, x, cfg.norm)
+        return self._logits(x), caches

@@ -1,0 +1,12 @@
+"""Hardware constants of the port's target card, one NVIDIA H100 SXM.
+
+From NVIDIA's data sheet (dense rates, at the full 700 W power limit); a
+card set to a lower limit runs below them.  The HLO analyzer of
+``repro.roofline`` has no counterpart yet.
+"""
+from __future__ import annotations
+
+__all__ = ["PEAK_FLOPS", "HBM_BW"]
+
+PEAK_FLOPS = 989e12  # dense bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12     # HBM3 bytes/s

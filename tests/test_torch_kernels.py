@@ -1,0 +1,199 @@
+"""The port's kernel layer (repro_torch.kernels) against the JAX package's
+Pallas kernels, run in interpret mode on the CPU.
+
+On the CPU the port's wrappers run the kernels' plain PyTorch versions; the
+CUDA kernels themselves run only on the card (the last tests here skip
+without one; ``chip_smoke.py`` exercises them at the main path's shapes).
+Inputs are made with numpy from a seed and fed to both packages.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import persistent_matmul as jpm
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.persistent_matmul import (
+    persistent_matmul,
+    persistent_matmul_traced,
+    tile_grid,
+    tile_of,
+)
+
+
+def _rand(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _both(a, dtype="float32"):
+    """The same numbers as a jax array and a torch tensor of ``dtype``."""
+    return jnp.asarray(a).astype(dtype), torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else jnp.asarray(x, jnp.float32))
+
+
+class TestPinnedMatmulParity:
+    @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+    @pytest.mark.parametrize(
+        "m,k,n,bands", [(256, 128, 256, 2), (512, 256, 512, 4), (128, 384, 256, 1)]
+    )
+    def test_matches_pallas(self, m, k, n, bands, dtype, tol):
+        xj, xt = _both(_rand(0, (m, k)), dtype)
+        wj, wt = _both(_rand(1, (k, n)), dtype)
+        want = _np(jpm.persistent_matmul(xj, wj, n_bands=bands, interpret=True))
+        for got in (ref.matmul_ref(xt, wt), ops.pinned_matmul(xt, wt, n_bands=bands)):
+            np.testing.assert_allclose(_np(got), want, rtol=tol, atol=tol * 8)
+
+    def test_matches_jax_ops_on_the_model_widths(self):
+        # qwen3-0.6b smoke widths: d=256, q/kv = 256/128, d_ff = 512
+        for k, n in [(256, 256), (256, 128), (256, 512), (512, 256)]:
+            xj, xt = _both(_rand(k, (64, k)))
+            wj, wt = _both(_rand(n, (k, n)))
+            want = np.asarray(jops.pinned_matmul(xj, wj, interpret=True))
+            got = ops.pinned_matmul(xt, wt).numpy()
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=8e-4)
+
+    def test_odd_shapes(self):
+        """The JAX wrapper falls back to x @ w; the port has no such rule."""
+        xj, xt = _both(_rand(2, (96, 80)))
+        wj, wt = _both(_rand(3, (80, 112)))
+        want = np.asarray(jops.pinned_matmul(xj, wj, interpret=True))
+        np.testing.assert_allclose(ops.pinned_matmul(xt, wt).numpy(), want,
+                                   rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("n,target", [(256, 256), (384, 256), (96, 128), (7, 4), (1, 8)])
+    def test_pick_block_matches_jax(self, n, target):
+        assert ops._pick_block(n, target) == jops._pick_block(n, target)
+
+
+class TestTileMap:
+    @pytest.mark.parametrize("m,n,bands", [(256, 256, 2), (512, 512, 4), (1024, 512, 8),
+                                           (128, 1024, 1)])
+    def test_tile_of_equals_jax_map(self, m, n, bands, monkeypatch):
+        """Capture the out_spec index map that the Pallas kernel gives
+        pallas_call and hold the port's tile_of to it."""
+        captured = {}
+
+        def fake_pallas_call(kernel, *, grid, out_specs, out_shape, **kw):
+            captured["grid"], captured["map"] = grid, out_specs.index_map
+            return lambda *args: jnp.zeros(out_shape.shape, out_shape.dtype)
+
+        monkeypatch.setattr(jpm.pl, "pallas_call", fake_pallas_call)
+        x = jnp.zeros((m, 128), jnp.float32)
+        w = jnp.zeros((128, n), jnp.float32)
+        jpm.persistent_matmul.__wrapped__(x, w, n_bands=bands)
+        n_bands, lanes, per_lane, _ = captured["grid"]
+        assert (n_bands, lanes) == (bands, 2)
+        n_tiles_n = n // 128
+        for b in range(n_bands):
+            for lane in range(2):
+                for step in range(per_lane):
+                    want = tuple(int(i) for i in captured["map"](b, lane, step, 0))
+                    assert tile_of(b, lane, step, per_lane, n_tiles_n) == want
+
+    @pytest.mark.parametrize("bands", [1, 2, 4, 8])
+    @pytest.mark.parametrize("m,n", [(4, 1024), (4, 3072), (1024, 2048), (100, 130)])
+    def test_every_tile_once_inside_its_band(self, m, n, bands):
+        _, n_tiles_n, total, per_lane = tile_grid(m, n, bands)
+        seen = {}
+        for b in range(bands):
+            for lane in range(2):
+                for step in range(per_lane):
+                    linear = b * 2 * per_lane + step * 2 + lane
+                    if linear >= total:
+                        continue  # masked by the kernel
+                    tile = tile_of(b, lane, step, per_lane, n_tiles_n)
+                    assert tile not in seen
+                    seen[tile] = b
+                    assert b * 2 * per_lane <= linear < (b + 1) * 2 * per_lane
+        assert len(seen) == total
+
+
+class TestFlashParity:
+    @pytest.mark.parametrize("window", [None, 64])
+    @pytest.mark.parametrize("s,qb", [(256, 128), (384, 128)])
+    def test_ref_matches_pallas(self, s, qb, window):
+        bh, hd = 4, 64
+        (qj, qt), (kj, kt), (vj, vt) = (_both(_rand(i, (bh, s, hd))) for i in range(3))
+        want = np.asarray(jflash(qj, kj, vj, scale=hd ** -0.5, window=window,
+                                 q_block=qb, kv_block=qb, interpret=True))
+        got = ref.flash_attention_ref(qt, kt, vt, scale=hd ** -0.5, window=window)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+    @pytest.mark.parametrize("window", [None, 64])
+    def test_mha_flash_gqa_matches_jax_ops(self, window):
+        b, s, h, hkv, hd = 2, 256, 8, 2, 32
+        qj, qt = _both(_rand(4, (b, s, h, hd)))
+        kj, kt = _both(_rand(5, (b, s, hkv, hd)))
+        vj, vt = _both(_rand(6, (b, s, hkv, hd)))
+        want = np.asarray(jops.mha_flash(qj, kj, vj, scale=hd ** -0.5, window=window,
+                                         interpret=True))
+        got = ops.mha_flash(qt, kt, vt, scale=hd ** -0.5, window=window)
+        assert got.shape == (b, s, h * hd)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+    def test_bf16_ref_matches_jax_ref(self):
+        bh, s, hd = 2, 128, 32
+        (qj, qt), (kj, kt), (vj, vt) = (_both(_rand(7 + i, (bh, s, hd)), "bfloat16")
+                                        for i in range(3))
+        want = _np(jref.flash_attention_ref(qj, kj, vj, scale=hd ** -0.5))
+        got = _np(ref.flash_attention_ref(qt, kt, vt, scale=hd ** -0.5))
+        np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
+
+
+class TestWrappers:
+    def test_cpu_calls_leave_launch_counters_at_zero(self):
+        x, w = torch.randn(8, 16), torch.randn(16, 24)
+        ops.pinned_matmul(x, w)
+        q = torch.randn(1, 64, 2, 32)
+        ops.mha_flash(q, q, q, scale=0.1)
+        assert persistent_matmul.launches == 0
+        assert flash_attention.launches == 0
+
+    def test_kernel_wrappers_refuse_cpu_tensors(self):
+        x = torch.randn(8, 16)
+        with pytest.raises(ValueError):
+            persistent_matmul(x, torch.randn(16, 8))
+        with pytest.raises(ValueError):
+            flash_attention(torch.randn(1, 8, 32), torch.randn(1, 8, 32),
+                            torch.randn(1, 8, 32), scale=0.1)
+
+
+class TestOnCard:
+    """The CUDA kernels against their plain versions (needs a card)."""
+
+    @staticmethod
+    def _need_card():
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU and nvcc: run python3 chip_smoke.py there")
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_pinned_matmul_covers_every_tile_once(self, dtype):
+        self._need_card()
+        x = torch.randn(100, 200, device="cuda").to(dtype)
+        w = torch.randn(200, 130, device="cuda").to(dtype)
+        outs = []
+        for bands in (1, 2, 8):
+            out, trace = persistent_matmul_traced(x, w, bands)
+            assert trace.tiles_done == trace.tile_hits.numel()
+            assert bool((trace.tile_hits == 1).all())
+            outs.append(out)
+        assert all(torch.equal(o, outs[0]) for o in outs)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(outs[0].float(), ref.matmul_ref(x, w).float(),
+                                   rtol=tol, atol=tol * 8)
+
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
+    @pytest.mark.parametrize("window", [None, 64])
+    def test_flash_attention_matches_ref(self, window, dtype, tol):
+        self._need_card()
+        q, k, v = (torch.randn(3, 200, 64, device="cuda").to(dtype) for _ in range(3))
+        got = flash_attention(q, k, v, scale=0.125, window=window)
+        want = ref.flash_attention_ref(q, k, v, scale=0.125, window=window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -1,0 +1,194 @@
+"""The port's model (repro_torch.models) against the JAX model on the CPU.
+
+JAX ``Model.init_params`` → numpy → ``repro_torch.convert`` → the port, in
+float32: prefill logits and filled caches, then eight decode steps, must
+match the JAX model path to 2e-4.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import LayerSpec as JLayerSpec
+from repro.models import Model as JModel
+from repro.models import ModelConfig as JModelConfig
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import caches_from_jax, params_from_jax
+from repro_torch.models import LayerSpec, Model, ModelConfig
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _pair(**fields):
+    """The same config in both packages."""
+    pattern = fields.pop("pattern", (("attn", "mlp"),))
+    return (JModelConfig(pattern=tuple(JLayerSpec(*p) for p in pattern), **fields),
+            ModelConfig(pattern=tuple(LayerSpec(*p) for p in pattern), **fields))
+
+
+def tiny_pair(n_repeats=2):
+    """tests/test_train_serve.py::tiny_cfg in both packages."""
+    return _pair(name="tiny", arch_type="dense", d_model=64, n_heads=4, n_kv_heads=2,
+                 d_ff=128, vocab=256, n_repeats=n_repeats, tie_embeddings=True,
+                 dtype="float32")
+
+
+def smoke_pair():
+    return jax_smoke_config("qwen3-0.6b"), get_smoke_config("qwen3-0.6b")
+
+
+CONFIGS = {"tiny": tiny_pair, "qwen3-0.6b-smoke": smoke_pair}
+
+
+def _build(pair, seed=0):
+    jcfg, tcfg = pair
+    jm = JModel(jcfg)
+    params = jm.init_params(jax.random.PRNGKey(seed))
+    model = Model(tcfg, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, params), tcfg))
+    return jm, params, model
+
+
+def _tokens(seed, shape, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+def _assert_caches_equal(jax_caches, port_caches, cfg):
+    want = caches_from_jax(jax.tree_util.tree_map(np.asarray, jax_caches), cfg)
+    assert len(want) == len(port_caches) == cfg.n_layers
+    for w, g in zip(want, port_caches):
+        np.testing.assert_allclose(g["kv"].k.numpy(), w["kv"].k.numpy(), **TOL)
+        np.testing.assert_allclose(g["kv"].v.numpy(), w["kv"].v.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_config_copy_matches_jax(name):
+    jcfg, tcfg = CONFIGS[name]()
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert jcfg.param_count() == tcfg.param_count()
+
+
+def test_full_config_matches_jax():
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config
+
+    assert dataclasses.asdict(jax_get_config("qwen3-0.6b")) == \
+        dataclasses.asdict(get_config("qwen3-0.6b"))
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_prefill_and_eight_decode_steps_match_jax(name):
+    pair = CONFIGS[name]()
+    jcfg, tcfg = pair
+    jm, params, model = _build(pair)
+    b, s, max_len = 2, 20, 40
+    toks = _tokens(1, (b, s), jcfg.vocab)
+
+    jl, jc, _ = jm.prefill(params, jnp.asarray(toks), jm.init_caches(b, max_len))
+    with torch.inference_mode():
+        tl, tc = model.prefill(torch.as_tensor(toks), model.init_caches(b, max_len))
+    assert tl.shape == (b, 1, jcfg.vocab)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_caches_equal(jc, tc, tcfg)
+
+    cache_len = np.full((b,), s, np.int32)
+    steps = _tokens(2, (8, b, 1), jcfg.vocab)
+    for tok in steps:
+        jl, jc = jm.decode_step(params, jnp.asarray(tok), jc, jnp.asarray(cache_len))
+        with torch.inference_mode():
+            tl, tc = model.decode_step(torch.as_tensor(tok), tc, torch.as_tensor(cache_len))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        cache_len = cache_len + 1
+    _assert_caches_equal(jc, tc, tcfg)
+
+
+def test_decode_with_ragged_cache_lengths_matches_jax():
+    """Rows at different lengths; the last write lands on the clipped slot."""
+    pair = tiny_pair()
+    jm, params, model = _build(pair, seed=3)
+    b, s, max_len = 2, 10, 12
+    toks = _tokens(4, (b, s), 256)
+    _, jc, _ = jm.prefill(params, jnp.asarray(toks), jm.init_caches(b, max_len))
+    with torch.inference_mode():
+        _, tc = model.prefill(torch.as_tensor(toks), model.init_caches(b, max_len))
+    cache_len = np.array([s - 3, s + 1], np.int32)
+    for tok in _tokens(5, (3, b, 1), 256):
+        jl, jc = jm.decode_step(params, jnp.asarray(tok), jc, jnp.asarray(cache_len))
+        with torch.inference_mode():
+            tl, tc = model.decode_step(torch.as_tensor(tok), tc, torch.as_tensor(cache_len))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        cache_len = cache_len + 1
+    _assert_caches_equal(jc, tc, pair[1])
+
+
+def test_long_prompt_matches_jax_flash_branch():
+    """S > 1024 takes JAX's _flash_sdpa; the port's path is the same at every S."""
+    pair = tiny_pair(n_repeats=1)
+    jm, params, model = _build(pair, seed=5)
+    b, s = 1, 1152
+    toks = _tokens(6, (b, s), 256)
+    jl, jc, _ = jm.prefill(params, jnp.asarray(toks), jm.init_caches(b, s + 8))
+    with torch.inference_mode():
+        tl, tc = model.prefill(torch.as_tensor(toks), model.init_caches(b, s + 8))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_caches_equal(jc, tc, pair[1])
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_prefill_matches_jax_forward_train(name):
+    """Mirror of tests/test_train_serve.py::test_decode_matches_forward."""
+    jm, params, model = _build(CONFIGS[name](), seed=1)
+    b, s = 2, 12
+    toks = _tokens(7, (b, s), jm.cfg.vocab)
+    hidden, _ = jm.forward_train(params, jnp.asarray(toks))
+    full_logits = np.asarray(jm._logits(params, hidden[:, -1:]))
+    with torch.inference_mode():
+        tl, _ = model.prefill(torch.as_tensor(toks), model.init_caches(b, 32))
+    np.testing.assert_allclose(tl.numpy(), full_logits, **TOL)
+
+
+def test_converted_weights_keep_the_jax_layout():
+    jcfg, tcfg = tiny_pair()
+    jm, params, model = _build((jcfg, tcfg))
+    state = model.state_dict()
+    for r in range(tcfg.n_repeats):
+        np.testing.assert_array_equal(
+            state[f"layers.{r}.mixer.wq"].numpy(),
+            np.asarray(params["layers"][0]["mixer"]["wq"][r]))
+        assert state[f"layers.{r}.ffn.w_down"].shape == (tcfg.d_ff, tcfg.d_model)
+    np.testing.assert_array_equal(state["embed.w"].numpy(), np.asarray(params["embed"]["w"]))
+
+
+def test_init_params_is_seeded():
+    _, tcfg = tiny_pair()
+    a, b, c = (Model(tcfg, device="cpu") for _ in range(3))
+    a.init_params(0)
+    b.init_params(0)
+    c.init_params(1)
+    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not torch.equal(sa["layers.0.mixer.wq"], sc["layers.0.mixer.wq"])
+    # the JAX package's scales: embedding 0.02, dense d_in ** -0.5, norms 1
+    assert abs(sa["embed.w"].std().item() - 0.02) < 2e-3
+    assert abs(sa["layers.0.ffn.w_gate"].std().item() - tcfg.d_model ** -0.5) < 0.01
+    assert torch.equal(sa["layers.0.norm1.w"], torch.ones(tcfg.d_model))
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(tiny_pair()[1])
+
+
+@pytest.mark.parametrize("mixer,ffn", [("mamba", "mlp"), ("attn", "moe"), ("mlstm", "none")])
+def test_unported_layers_raise(mixer, ffn):
+    _, tcfg = _pair(name="x", arch_type="hybrid", d_model=32, n_heads=2, n_kv_heads=2,
+                    d_ff=64, vocab=64, n_repeats=1, n_experts=4, top_k=2,
+                    pattern=((mixer, ffn),), dtype="float32")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(tcfg, device="cpu")
