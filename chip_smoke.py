@@ -7,28 +7,42 @@ Runs from the repository root and imports only ``repro_torch`` (from
 ``src/``).  Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both hand kernels with nvcc into ``build/``, timed;
-3. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes: persistent_matmul (bf16 and f32, n_bands in {1, 8, all
-   SMs}: tile coverage, the allocated-SM check, bit-identity across band
-   counts) and flash_attention (prefill shape, sliding window, ragged S);
-   each kernel's device time (CUDA-graph replay) beside its plain version,
-   a library yardstick and its bound, and its time when issued eagerly;
-4. main path: full-width qwen3-0.6b in bf16 (random weights from a seed)
-   through ``ServingEngine.generate``, two rounds of 4 requests of 256
-   prompt tokens and 16 greedy tokens, with the kernels' launch counts;
-   then the prefill logits against the same model on the plain versions,
-   both held to a float32 run of the plain versions;
-5. profile: device time by kernel and the device's idle share over one
-   prefill and eight decode steps (torch.profiler);
-6. RT bridge: the measured decode step as an RTGPU task.
+2. build: the three hand kernels with nvcc into ``build/``, timed;
+3. qwen3-0.6b path:
+   a. kernels against their plain PyTorch versions on the card, at the
+      path's shapes: persistent_matmul (bf16 and f32, n_bands in {1, 8,
+      all SMs}: tile coverage, the allocated-SM check, bit-identity across
+      band counts) and flash_attention (prefill shape, sliding window,
+      ragged S); each kernel's device time (CUDA-graph replay) beside its
+      plain version, a library yardstick and its bound, and its time when
+      issued eagerly;
+   b. main path: full-width qwen3-0.6b in bf16 (random weights from a seed)
+      through ``ServingEngine.generate``, two rounds of 4 requests of 256
+      prompt tokens and 16 greedy tokens, with the kernels' exact launch
+      counts; then the prefill logits against the same model on the plain
+      versions, both held to a float32 run of the plain versions (one block
+      at a time), and each block's own error on either path, reported;
+   c. profile: device time by kernel and the device's idle share over one
+      prefill and eight decode steps (torch.profiler);
+   d. RT bridge: the measured decode step as an RTGPU task;
+4. jamba-v0.1-52b path, at full width cut to one period of 8 layers (the
+   32 layers' 102.9 GB of bf16 weights exceed the card's 80 GB), after
+   the qwen engine is freed: the same four phases, with selective_scan
+   held to its plain version at the prefill chunk's shape (h0 none, zero
+   and random; c in f32 and bf16) and at ragged shapes, and the pinned
+   matmul checked and timed at jamba's projection shapes.
 
-Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
-Details go to ``chiprun_out/chip_smoke.json``.
+Prints a ``{"kernels": [...]}`` line (each kernel's launches and times
+summed over both paths) and, last, ``{"ok": true, ...}``.  Details go to
+``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import copy
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -40,15 +54,18 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 BATCH, PROMPT, NEW_TOKENS, ROUNDS, MAX_CONTEXT = 4, 256, 16, 2, 512
+SCAN_CHUNK = 128  # the Mamba prefill's time chunk (models.mamba.ssm_scan_chunked)
 SEED = 0
 # Tolerances, kernel vs plain version on the same inputs:
 MATMUL_F32_TOL = 1e-4    # abs, outputs of unit scale; both accumulate in f32 (no TF32)
 MATMUL_BF16_TOL = 1e-2   # rtol = atol: one bf16 ulp (<= 2**-7 relative) from f32 sums
 FLASH_F32_TOL = 2e-4     # as tests/test_kernels.py for f32 attention
 FLASH_BF16_TOL = 3e-2    # as tests/test_kernels.py for bf16 attention
-# Prefill logits of 28 bf16 layers: the kernel path may differ from the plain
-# path, and from a float32 run of the plain path, by at most this many times
-# the plain bf16 path's own relative L2 error against that float32 run.
+SCAN_TOL = 1e-4          # rtol = atol, as tests/test_kernels.py: the same f32 FMAs
+                         # in the same t order; only the sum over N differs
+# Prefill logits of the bf16 model: the kernel path may differ from the
+# plain path, and from a float32 run of the plain path, by at most this
+# many times the plain bf16 path's own relative L2 error against that run.
 LOGITS_NOISE_FACTOR = 2.0
 
 
@@ -93,7 +110,9 @@ def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
         for _ in range(reps):
             graph.replay()
 
-    return _events_ms(replays, reps * iters)
+    ms = _events_ms(replays, reps * iters)
+    del graph
+    return ms
 
 
 def eager_ms(fn, iters: int = 20) -> float:
@@ -121,14 +140,83 @@ def cycling(fn, args_list):
     return call
 
 
-def bound(n_bytes: float, flops: float) -> dict:
-    """Least time for the work: bytes over HBM rate or bf16 FLOPs over the
-    tensor-core peak, whichever is larger (H100 SXM data sheet)."""
-    from repro_torch.roofline import HBM_BW, PEAK_FLOPS
+def bound(n_bytes: float, flops: float, f32: bool = False) -> dict:
+    """Least time for the work: bytes over the HBM rate or FLOPs over the
+    peak for their type (bf16 tensor cores, or float32 outside them),
+    whichever is larger (H100 SXM data sheet)."""
+    from repro_torch.roofline import HBM_BW, PEAK_FLOPS, PEAK_FLOPS_F32
 
-    t_bytes, t_ops = n_bytes / HBM_BW * 1e3, flops / PEAK_FLOPS * 1e3
+    t_bytes = n_bytes / HBM_BW * 1e3
+    t_ops = flops / (PEAK_FLOPS_F32 if f32 else PEAK_FLOPS) * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes, "ops_ms": t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def launch_counters() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.persistent_matmul import persistent_matmul
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    return {"persistent_matmul": persistent_matmul, "flash_attention": flash_attention,
+            "selective_scan": selective_scan}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel call of the model path goes to its plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref, matmul_ref, selective_scan_ref
+
+    with mock.patch.object(ops, "persistent_matmul", lambda x, w, n_bands=None: matmul_ref(x, w)), \
+            mock.patch.object(ops, "flash_attention", flash_attention_ref), \
+            mock.patch.object(ops, "selective_scan", selective_scan_ref):
+        yield
+
+
+# ------------------------------------------------------- the path's shapes
+
+
+def scan_chunks() -> tuple[int, int]:
+    """(chunk, chunks) of one Mamba prefill of PROMPT steps."""
+    return (SCAN_CHUNK, PROMPT // SCAN_CHUNK) if PROMPT % SCAN_CHUNK == 0 else (PROMPT, 1)
+
+
+def layers(cfg):
+    return [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+
+
+def matmul_calls(cfg) -> dict:
+    """(M, K, N, dtype) -> launches of the pinned matmul on the main path
+    (ROUNDS prefills of BATCH x PROMPT tokens, NEW_TOKENS decode steps
+    each), from the layer list: attention q/k/v/o; Mamba in_proj, x_proj
+    (once per time chunk) and out_proj; MLP gate/up/down; the MoE router in
+    float32.  The lm head and the MoE experts are plain products."""
+    d, hd, ff, di = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.d_inner
+    q, kv, ds = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.mamba_d_state
+    chunk, n_chunks = scan_chunks()
+    calls = collections.Counter()
+    for m, xm, xn, times in ((BATCH * PROMPT, BATCH * chunk, n_chunks, ROUNDS),
+                             (BATCH, BATCH, 1, ROUNDS * NEW_TOKENS)):
+        for spec in layers(cfg):
+            if spec.mixer == "attn":
+                shapes = [(m, d, q), (m, d, kv), (m, d, kv), (m, q, d)]
+            else:
+                shapes = [(m, d, 2 * di)] + [(xm, di, 2 * ds + 1)] * xn + [(m, di, d)]
+            if spec.ffn == "mlp":
+                shapes += [(m, d, ff), (m, d, ff), (m, ff, d)]
+            for shape in shapes:
+                calls[(*shape, cfg.dtype)] += times
+            if spec.ffn == "moe":
+                calls[(m, d, cfg.n_experts, "float32")] += times
+    return dict(calls)
+
+
+def expected_launches(cfg) -> dict:
+    n_attn = sum(spec.mixer == "attn" for spec in layers(cfg))
+    n_mamba = sum(spec.mixer == "mamba" for spec in layers(cfg))
+    return {"persistent_matmul": sum(matmul_calls(cfg).values()),
+            "flash_attention": n_attn * ROUNDS,
+            "selective_scan": n_mamba * scan_chunks()[1] * ROUNDS}
 
 
 # --------------------------------------------------------------------- phases
@@ -162,13 +250,7 @@ def phase_build() -> dict:
     return {"seconds": seconds, "nvcc": logs}
 
 
-def proj_shapes(cfg) -> list[tuple[int, int]]:
-    """(K, N) of one layer's projections, in call order."""
-    d, q, kv, ff = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim, cfg.d_ff
-    return [(d, q), (d, kv), (d, kv), (q, d), (d, ff), (d, ff), (ff, d)]
-
-
-def check_matmul(m, k, n, dtype, gen, n_sms) -> float:
+def check_matmul(m, k, n, dtype, gen, band_counts) -> float:
     import torch
     from repro_torch.kernels.persistent_matmul import (
         persistent_matmul, persistent_matmul_traced, tile_grid)
@@ -178,7 +260,7 @@ def check_matmul(m, k, n, dtype, gen, n_sms) -> float:
     w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(dtype)
     want = matmul_ref(x, w)
     outs = []
-    for n_bands in (1, 8, n_sms):
+    for n_bands in band_counts:
         got, trace = persistent_matmul_traced(x, w, n_bands)
         torch.cuda.synchronize()
         _, _, total, per_lane = tile_grid(m, n, n_bands)
@@ -191,9 +273,10 @@ def check_matmul(m, k, n, dtype, gen, n_sms) -> float:
         check(torch.equal(trace.tile_sm.cpu(), owner),
               f"matmul {m}x{k}x{n} n_bands={n_bands}: a tile ran off its band's SM")
         outs.append(got)
-    for n_bands, o in zip((8, n_sms), outs[1:]):
+    for n_bands, o in zip(band_counts[1:], outs[1:]):
         check(torch.equal(o, outs[0]),
-              f"matmul {m}x{k}x{n} {dtype}: n_bands={n_bands} differs from n_bands=1")
+              f"matmul {m}x{k}x{n} {dtype}: n_bands={n_bands} differs from "
+              f"n_bands={band_counts[0]}")
     check(torch.equal(persistent_matmul(x, w), outs[0]), "untraced launch differs")
     err = (outs[0].float() - want.float()).abs().max().item()
     if dtype == torch.float32:
@@ -226,28 +309,148 @@ def check_flash(b, s, h, hkv, hd, dtype, window, gen) -> float:
     return err
 
 
-def phase_kernels(cfg, n_sms) -> dict:
+def scan_inputs(b, s, d, n, c_dtype, gen):
+    """abar in (0.5, 1) (the model's exp(dt * A) < 1), bx of the scale the
+    model gives, c in c_dtype."""
+    import torch
+
+    abar = torch.rand(b, s, d, n, generator=gen, device="cuda") * 0.5 + 0.5
+    bx = torch.randn(b, s, d, n, generator=gen, device="cuda") * 0.1
+    c = torch.randn(b, s, n, generator=gen, device="cuda").to(c_dtype)
+    return abar, bx, c
+
+
+def check_scan(b, s, d, n, c_dtype, h0_kind, gen) -> float:
+    """selective_scan against selective_scan_ref: y and the final state."""
+    import torch
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    abar, bx, c = scan_inputs(b, s, d, n, c_dtype, gen)
+    h0 = {"none": None, "zero": torch.zeros(b, d, n, device="cuda"),
+          "random": torch.randn(b, d, n, generator=gen, device="cuda")}[h0_kind]
+    got = selective_scan(abar, bx, c, h0)
+    want = selective_scan_ref(abar, bx, c, h0)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("y", "h_out"), got, want):
+        e = (g - w).abs().max().item()
+        check(bool(torch.isfinite(g).all()) and torch.allclose(g, w, rtol=SCAN_TOL, atol=SCAN_TOL),
+              f"selective_scan {(b, s, d, n)} c {c_dtype} h0 {h0_kind}: {name} max abs err {e}")
+        err = max(err, e)
+    return err
+
+
+def matmul_rows(cfg, calls: dict, gen) -> list[dict]:
+    """Device time of each (M, K, N, dtype) the path launches, beside the
+    plain version, torch.matmul and the bound."""
+    import torch
+    from repro_torch.kernels.persistent_matmul import persistent_matmul
+    from repro_torch.kernels.ref import matmul_ref
+
+    rows = []
+    for (m, k, n, dt_name), n_calls in sorted(calls.items()):
+        dt = getattr(torch, dt_name)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+        n_w = max(2, int(120e6 // (k * n * x.element_size())) + 1)
+        ws = [(torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(dt)
+              for _ in range(n_w)]
+        args = [(x, w) for w in ws]
+        iters = max(20, n_w)  # one graph walks the whole ring
+        eb = x.element_size()
+        rows.append({
+            "m": m, "k": k, "n": n, "dtype": dt_name, "calls": n_calls,
+            "ms": time_ms(cycling(persistent_matmul, args), iters),
+            "eager_ms": eager_ms(cycling(persistent_matmul, args)),
+            "plain_ms": time_ms(cycling(matmul_ref, args), iters),
+            "library_ms": time_ms(cycling(torch.matmul, args), iters),
+            **bound((m * k + k * n + m * n) * eb, 2.0 * m * n * k, f32=dt == torch.float32),
+        })
+        del ws, args
+    for r in rows:
+        print(f"[kernels] {cfg.name} matmul M={r['m']} K={r['k']} N={r['n']} {r['dtype']} "
+              f"x{r['calls']}: {r['ms']:.4f} ms (issued eagerly {r['eager_ms']:.4f}; plain "
+              f"{r['plain_ms']:.4f}, torch.matmul {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']})")
+    return rows
+
+
+def flash_row(cfg, calls: int, gen) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.persistent_matmul import persistent_matmul
-    from repro_torch.kernels.ref import flash_attention_ref, matmul_ref
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    dt, hd, bh = getattr(torch, cfg.dtype), cfg.head_dim, BATCH * cfg.n_heads
+    qf, kf, vf = (torch.randn(bh, PROMPT, hd, generator=gen, device="cuda").to(dt)
+                  for _ in range(3))
+    q4, k4, v4 = (t.reshape(BATCH, cfg.n_heads, PROMPT, hd) for t in (qf, kf, vf))
+    scale = hd ** -0.5
+    row = {
+        "bh": bh, "s": PROMPT, "hd": hd, "calls": calls,
+        "ms": time_ms(lambda: flash_attention(qf, kf, vf, scale=scale)),
+        "eager_ms": eager_ms(lambda: flash_attention(qf, kf, vf, scale=scale)),
+        "plain_ms": time_ms(lambda: flash_attention_ref(qf, kf, vf, scale=scale)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, scale=scale)),
+        # causal work: query i attends i+1 keys, two products of hd each
+        **bound(4 * bh * PROMPT * hd * qf.element_size(),
+                4.0 * hd * bh * PROMPT * (PROMPT + 1) / 2),
+    }
+    print(f"[kernels] {cfg.name} flash BH={bh} S={PROMPT} hd={hd} x{calls}: {row['ms']:.4f} ms "
+          f"(issued eagerly {row['eager_ms']:.4f}; plain {row['plain_ms']:.4f}, "
+          f"sdpa {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by {row['bound_by']})")
+    return row
+
+
+def scan_rows(cfg, calls: int, gen) -> list[dict]:
+    """The prefill chunk's scan with and without h0 (the first chunk starts
+    from zero), each taking half of the path's launches."""
+    import torch
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    chunk, _ = scan_chunks()
+    b, d, n = BATCH, cfg.d_inner, cfg.mamba_d_state
+    abar, bx, c = scan_inputs(b, chunk, d, n, getattr(torch, cfg.dtype), gen)
+    rows = []
+    for h0 in (None, torch.randn(b, d, n, generator=gen, device="cuda")):
+        n_bytes = (2 * abar.numel() + b * chunk * d) * 4 + c.numel() * c.element_size() \
+            + b * d * n * 4 * (1 if h0 is None else 2)
+        row = {
+            "b": b, "s": chunk, "d": d, "n": n, "h0": h0 is not None, "calls": calls // 2,
+            "ms": time_ms(lambda: selective_scan(abar, bx, c, h0)),
+            "eager_ms": eager_ms(lambda: selective_scan(abar, bx, c, h0)),
+            "plain_ms": time_ms(lambda: selective_scan_ref(abar, bx, c, h0), iters=5, reps=2),
+            "library_ms": None,  # no single PyTorch call computes the scan
+            # per state and step: one FMA for h, a multiply-add for y
+            **bound(n_bytes, 4.0 * abar.numel(), f32=True),
+        }
+        row["gb_s"] = n_bytes / row["ms"] / 1e6
+        rows.append(row)
+        print(f"[kernels] {cfg.name} selective_scan B={b} S={chunk} D={d} N={n} "
+              f"h0={row['h0']} x{row['calls']}: {row['ms']:.4f} ms, {row['gb_s']:.0f} GB/s "
+              f"(issued eagerly {row['eager_ms']:.4f}; plain {row['plain_ms']:.4f}, "
+              f"bound {row['bound_ms']:.4f} by {row['bound_by']})")
+    return rows
+
+
+def phase_kernels_qwen(cfg, n_sms) -> dict:
+    import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dt = getattr(torch, cfg.dtype)
-    ms_path = (BATCH * PROMPT, BATCH)
-    shapes = sorted(set(proj_shapes(cfg)))
+    calls = matmul_calls(cfg)
 
     # correctness
     mm_err = {}
-    for m in ms_path:
-        for k, n in shapes:
-            for dtype in (torch.bfloat16, torch.float32):
-                mm_err[(m, k, n, str(dtype))] = check_matmul(m, k, n, dtype, gen, n_sms)
+    for m, k, n, _ in calls:
+        for dtype in (torch.bfloat16, torch.float32):
+            mm_err[(m, k, n, str(dtype))] = check_matmul(m, k, n, dtype, gen, (1, 8, n_sms))
     ragged = [(m, 200, n, dtype) for m in (3, 16, 100) for n in (130, 136)
               for dtype in (torch.float32, torch.bfloat16)]
     for m, k, n, dtype in ragged:  # ragged edges, every tile variant, scalar and vector loads
-        check_matmul(m, k, n, dtype, gen, n_sms)
+        check_matmul(m, k, n, dtype, gen, (1, 8, n_sms))
     print(f"[kernels] persistent_matmul: {len(mm_err) + len(ragged)} shapes x 3 band counts ok; "
           f"max abs err bf16 {max(v for key, v in mm_err.items() if 'bfloat16' in key[3]):.3g}, "
           f"f32 {max(v for key, v in mm_err.items() if 'float32' in key[3]):.3g}")
@@ -264,67 +467,105 @@ def phase_kernels(cfg, n_sms) -> dict:
     print(f"[kernels] flash_attention ok: max abs err {fl_err:.3g} (path), {fl_extra}")
 
     # timing at the path's shapes, in the path's dtype, on all SMs
-    calls_prefill = cfg.n_layers * ROUNDS
-    calls_decode = cfg.n_layers * ROUNDS * NEW_TOKENS
-    rows = []
-    for m, calls_per_shape in ((BATCH * PROMPT, calls_prefill), (BATCH, calls_decode)):
-        for k, n in proj_shapes(cfg):
-            x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
-            n_w = max(2, int(120e6 // (k * n * x.element_size())) + 1)
-            ws = [(torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(dt)
-                  for _ in range(n_w)]
-            args = [(x, w) for w in ws]
-            iters = max(20, n_w)  # one graph walks the whole ring
-            eb = x.element_size()
-            rows.append({
-                "m": m, "k": k, "n": n, "calls": calls_per_shape,
-                "ms": time_ms(cycling(persistent_matmul, args), iters),
-                "eager_ms": eager_ms(cycling(persistent_matmul, args)),
-                "plain_ms": time_ms(cycling(matmul_ref, args), iters),
-                "library_ms": time_ms(cycling(torch.matmul, args), iters),
-                **bound((m * k + k * n + m * n) * eb, 2.0 * m * n * k),
-            })
-            del ws, args
-    for r in rows:
-        print(f"[kernels] matmul M={r['m']} K={r['k']} N={r['n']}: {r['ms']:.4f} ms "
-              f"(issued eagerly {r['eager_ms']:.4f}; plain {r['plain_ms']:.4f}, "
-              f"torch.matmul {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
-              f"by {r['bound_by']})")
-
-    bh = BATCH * cfg.n_heads
-    qf, kf, vf = (torch.randn(bh, PROMPT, hd, generator=gen, device="cuda").to(dt)
-                  for _ in range(3))
-    q4, k4, v4 = (t.reshape(BATCH, cfg.n_heads, PROMPT, hd) for t in (qf, kf, vf))
-    scale = hd ** -0.5
-    flash_row = {
-        "bh": bh, "s": PROMPT, "hd": hd, "calls": calls_prefill,
-        "ms": time_ms(lambda: flash_attention(qf, kf, vf, scale=scale)),
-        "eager_ms": eager_ms(lambda: flash_attention(qf, kf, vf, scale=scale)),
-        "plain_ms": time_ms(lambda: flash_attention_ref(qf, kf, vf, scale=scale)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, scale=scale)),
-        # causal work: query i attends i+1 keys, two products of hd each
-        **bound(4 * bh * PROMPT * hd * qf.element_size(),
-                4.0 * hd * bh * PROMPT * (PROMPT + 1) / 2),
-    }
-    print(f"[kernels] flash BH={bh} S={PROMPT} hd={hd}: {flash_row['ms']:.4f} ms "
-          f"(issued eagerly {flash_row['eager_ms']:.4f}; plain {flash_row['plain_ms']:.4f}, "
-          f"sdpa {flash_row['library_ms']:.4f}, "
-          f"bound {flash_row['bound_ms']:.4f} by {flash_row['bound_by']})")
+    expected = expected_launches(cfg)
     bf16_err = max(v for key, v in mm_err.items() if key[3] == str(dt))
-    return {"matmul_rows": rows, "flash_row": flash_row,
+    return {"matmul_rows": matmul_rows(cfg, calls, gen),
+            "flash_rows": [flash_row(cfg, expected["flash_attention"], gen)],
+            "scan_rows": [],
             "matmul_err": bf16_err, "flash_err": fl_err, "flash_extra_err": fl_extra}
+
+
+def phase_kernels_jamba(cfg, n_sms) -> dict:
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dt = getattr(torch, cfg.dtype)
+    chunk, _ = scan_chunks()
+    d, n = cfg.d_inner, cfg.mamba_d_state
+
+    # selective_scan: the prefill chunk's shape, then ragged S, D and every N
+    scan_err = {}
+    for c_dtype in (torch.float32, torch.bfloat16):
+        for h0 in ("none", "zero", "random"):
+            scan_err[(chunk, d, n, str(c_dtype), h0)] = check_scan(
+                BATCH, chunk, d, n, c_dtype, h0, gen)
+    ragged = [(s, dd, nn, c_dtype, h0) for s in (1, 77, 200) for dd, nn in
+              ((100, 16), (300, 8), (70, 4), (257, 16)) for c_dtype, h0 in
+              ((torch.float32, "random"), (torch.bfloat16, "none"))]
+    for s, dd, nn, c_dtype, h0 in ragged:
+        check_scan(2, s, dd, nn, c_dtype, h0, gen)
+    path_err = max(v for key, v in scan_err.items() if key[3] == str(dt))
+    print(f"[kernels] selective_scan: {len(scan_err)} path cases and {len(ragged)} ragged "
+          f"cases ok; max abs err {max(scan_err.values()):.3g} (path, c {cfg.dtype} "
+          f"{path_err:.3g})")
+
+    # persistent_matmul at jamba's projection shapes, all SMs; flash at its head shape
+    calls = matmul_calls(cfg)
+    mm_err = {key: check_matmul(*key[:3], getattr(torch, key[3]), gen, (n_sms,))
+              for key in calls}
+    print(f"[kernels] persistent_matmul at {len(mm_err)} jamba shapes ok; max abs err "
+          f"{max(mm_err.values()):.3g}")
+    fl_err = check_flash(BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt, None, gen)
+    print(f"[kernels] flash_attention at jamba's shape ok: max abs err {fl_err:.3g}")
+
+    expected = expected_launches(cfg)
+    return {"matmul_rows": matmul_rows(cfg, calls, gen),
+            "flash_rows": [flash_row(cfg, expected["flash_attention"], gen)],
+            "scan_rows": scan_rows(cfg, expected["selective_scan"], gen),
+            "matmul_err": max(v for key, v in mm_err.items() if key[3] == cfg.dtype),
+            "flash_err": fl_err, "scan_err": path_err}
+
+
+def rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def prefill_f32(model, tokens):
+    """Prefill logits of a float32 copy of the model on the plain versions,
+    one block at a time (a float32 copy of a whole large model need not
+    fit beside the bf16 one): cast a block, run it, free it.
+
+    Also returns, per block, the relative L2 error of the block's update
+    (output minus input) in the model's dtype, on the kernels and on the
+    plain versions, against the float32 block's, each fed the float32
+    run's input to that block: one block's error, without what the blocks
+    before it passed on."""
+    import torch
+    from repro_torch.models.blocks import block_prefill, init_block_cache
+    from repro_torch.models.layers import apply_norm
+
+    cfg, f32 = model.cfg, torch.float32
+    x = model._embed(tokens).float()
+    block_errs = []
+    for i, block in enumerate(model.layers):
+        spec = model._spec(i)
+
+        def update(blk, dtype):
+            cache = init_block_cache(cfg, spec, tokens.shape[0], MAX_CONTEXT, dtype,
+                                     model.device)
+            x_in = x.to(dtype)
+            out, _ = block_prefill(blk, cfg, spec, x_in, cache, cfg.sliding_window)
+            return out.float() - x_in.float(), out
+
+        kernels, _ = update(block, model.dtype)
+        with plain_kernels():
+            plain, _ = update(block, model.dtype)
+            block32 = copy.deepcopy(block).float()
+            want, x = update(block32, f32)
+        block_errs.append({"layer": i, "mixer": spec.mixer, "ffn": spec.ffn,
+                           "kernels": rel_l2(kernels, want), "plain": rel_l2(plain, want)})
+        del block32, kernels, plain, want
+    x = apply_norm(copy.deepcopy(model.final_norm).float(), x, cfg.norm)
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    return x[:, -1:] @ head["w"].float().T, block_errs
 
 
 def phase_main_path(cfg) -> dict:
     import numpy as np
     import torch
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.persistent_matmul import persistent_matmul
-    from repro_torch.kernels.ref import flash_attention_ref, matmul_ref
     from repro_torch.serving import ServeConfig, ServingEngine
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, ServeConfig(max_context=MAX_CONTEXT, batch=BATCH), seed=SEED)
     torch.cuda.synchronize()
@@ -333,8 +574,9 @@ def phase_main_path(cfg) -> dict:
     prompts = [rng.integers(0, cfg.vocab, (BATCH, PROMPT)).astype(np.int32)
                for _ in range(ROUNDS)]
 
-    persistent_matmul.launches = 0
-    flash_attention.launches = 0
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     rounds = []
     for p in prompts:
         t1 = time.perf_counter()
@@ -343,55 +585,54 @@ def phase_main_path(cfg) -> dict:
         rounds.append(stats)
         check(out.shape == (BATCH, NEW_TOKENS), f"tokens shape {out.shape}")
         check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token outside the vocab")
-    launches = {"persistent_matmul": persistent_matmul.launches,
-                "flash_attention": flash_attention.launches}
-    print(f"[main] launches on the main path: {launches}")
-    check(launches["persistent_matmul"] > 0 and launches["flash_attention"] > 0,
-          f"a kernel was not launched on the main path: {launches}")
-    n_proj = len(proj_shapes(cfg)) * cfg.n_layers * ROUNDS
-    check(launches["persistent_matmul"] == n_proj * (1 + NEW_TOKENS),
-          f"matmul launches {launches['persistent_matmul']} != {n_proj * (1 + NEW_TOKENS)}")
-    check(launches["flash_attention"] == cfg.n_layers * ROUNDS, "flash launches")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"[main] {cfg.name}: launches on the main path: {launches}")
+    expected = expected_launches(cfg)
+    check(all(launches[k] > 0 for k, v in expected.items() if v),
+          f"a kernel of the path was not launched on the main path: {launches}")
+    check(launches == expected, f"launches {launches} != expected {expected}")
+    peak_serve_gb = torch.cuda.max_memory_allocated() / 1e9
 
     model = engine.model
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts[0], device="cuda")
         got, _ = model.prefill(tokens, model.init_caches(BATCH, MAX_CONTEXT))
-        with mock.patch.object(ops, "persistent_matmul", lambda x, w, n_bands=None: matmul_ref(x, w)), \
-                mock.patch.object(ops, "flash_attention", flash_attention_ref):
+        with plain_kernels():
             want, _ = model.prefill(tokens, model.init_caches(BATCH, MAX_CONTEXT))
-            model32 = copy.deepcopy(model).float()
-            model32.dtype = torch.float32
-            truth, _ = model32.prefill(tokens, model32.init_caches(BATCH, MAX_CONTEXT))
-            del model32
+        truth, block_errs = prefill_f32(model, tokens)
     got, want = got.float(), want.float()
     check(got.shape == (BATCH, 1, cfg.vocab) and bool(torch.isfinite(got).all()),
           f"prefill logits {tuple(got.shape)} not finite or mis-shaped")
-
-    def rel_l2(a, b):
-        return ((a - b).norm() / b.norm()).item()
 
     rel, noise, rel_truth = rel_l2(got, want), rel_l2(want, truth), rel_l2(got, truth)
     argmax_agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     max_abs = (got - want).abs().max().item()
     check(rel <= LOGITS_NOISE_FACTOR * noise and rel_truth <= LOGITS_NOISE_FACTOR * noise,
-          f"prefill logits: kernels vs plain rel L2 {rel}, vs float32 {rel_truth}; "
+          f"{cfg.name} prefill logits: kernels vs plain rel L2 {rel}, vs float32 {rel_truth}; "
           f"plain bf16 vs float32 {noise} (factor {LOGITS_NOISE_FACTOR})")
 
     steady = rounds[-1]
     tok_s = BATCH / steady["decode_s_per_tok"]
-    print(f"[main] qwen3-0.6b bf16 batch {BATCH}: prefill {steady['prefill_s'] * 1e3:.3f} ms "
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[main] {cfg.name} bf16 batch {BATCH}: prefill {steady['prefill_s'] * 1e3:.3f} ms "
           f"({BATCH}x{PROMPT} tokens), decode {steady['decode_s_per_tok'] * 1e3:.3f} ms/step, "
-          f"{tok_s:.1f} tokens/s; round walls {[round(r['wall_s'], 3) for r in rounds]} s")
-    print(f"[main] prefill logits rel L2: kernels vs plain {rel:.4g}, kernels vs float32 "
-          f"{rel_truth:.4g}, plain bf16 vs float32 {noise:.4g}; max abs {max_abs:.3g}, "
+          f"{tok_s:.1f} tokens/s; round walls {[round(r['wall_s'], 3) for r in rounds]} s; "
+          f"init {init_s:.1f} s")
+    print(f"[main] {cfg.name} prefill logits rel L2: kernels vs plain {rel:.4g}, kernels vs "
+          f"float32 {rel_truth:.4g}, plain bf16 vs float32 {noise:.4g}; max abs {max_abs:.3g}, "
           f"argmax agreement {argmax_agree:.3f}")
+    worst = max(block_errs, key=lambda e: e["kernels"])
+    per_block = " ".join("{kernels:.3g}/{plain:.3g}".format(**e) for e in block_errs)
+    print(f"[main] {cfg.name} one block's update against float32, rel L2, kernels/plain: "
+          f"{per_block}; worst layer {worst['layer']} ({worst['mixer']}+{worst['ffn']})")
+    print(f"[main] {cfg.name} peak device memory: serving {peak_serve_gb:.2f} GB, with the "
+          f"checks {peak_gb:.2f} GB")
     return {"engine": engine, "prompt": prompts[0],
             "launches": launches, "rounds": rounds, "init_s": init_s,
             "logits_rel_l2": rel, "logits_rel_l2_vs_f32": rel_truth,
-            "plain_bf16_rel_l2_vs_f32": noise,
+            "plain_bf16_rel_l2_vs_f32": noise, "block_update_rel_l2": block_errs,
             "logits_max_abs": max_abs, "argmax_agree": argmax_agree,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_mem_gb": peak_gb, "peak_serving_mem_gb": peak_serve_gb}
 
 
 def _profile(fn, steps: int) -> dict:
@@ -446,10 +687,11 @@ def phase_profile(engine, prompt) -> dict:
         out["decode"] = _profile(step, 8)
     for phase, r in out.items():
         if r["idle_share"] is None:
-            print(f"[profile] {phase}: the profiler saw no device time (not measured)")
+            print(f"[profile] {model.cfg.name} {phase}: the profiler saw no device time "
+                  f"(not measured)")
             continue
-        print(f"[profile] {phase}: wall {r['wall_ms_per_step']:.3f} ms/step under the "
-              f"profiler, device busy {r['device_ms_per_step']:.3f} ms, idle share "
+        print(f"[profile] {model.cfg.name} {phase}: wall {r['wall_ms_per_step']:.3f} ms/step "
+              f"under the profiler, device busy {r['device_ms_per_step']:.3f} ms, idle share "
               f"{r['idle_share']:.3f}, {r['device_ops_per_step']:.0f} device ops/step")
         for row in r["top"][:6]:
             print(f"[profile]   {row['device_ms']:.4f} ms  x{row['calls']}  {row['name'][:90]}")
@@ -460,7 +702,7 @@ def phase_rt(cfg, decode_s: float) -> dict:
     from repro_torch.runtime import ServingTaskSpec, serving_task_to_rt
 
     spec = ServingTaskSpec(
-        name="chat-qwen", arch_id=cfg.name, period_ms=1000.0, deadline_ms=500.0,
+        name=f"chat-{cfg.name}", arch_id=cfg.name, period_ms=1000.0, deadline_ms=500.0,
         batch=BATCH, seq_len=PROMPT, new_tokens=NEW_TOKENS, roofline_step_s=decode_s,
         dominant="memory_s", vocab=cfg.vocab,
     )
@@ -474,37 +716,63 @@ def phase_rt(cfg, decode_s: float) -> dict:
     return {"gpu_segment": vars(seg), "utilization": task.utilization()}
 
 
-def kernels_line(kern: dict, main: dict) -> dict:
-    rows, fr = kern["matmul_rows"], kern["flash_row"]
+def run_path(cfg, kernels_phase, n_sms) -> dict:
+    """One model's kernels, main path, profile and RT phases; frees the
+    engine before it returns."""
+    import torch
 
-    def total(key, rs):
-        return sum(r["calls"] * r[key] for r in rs)
+    out = {"kernels": kernels_phase(cfg, n_sms), "main": phase_main_path(cfg)}
+    engine, prompt = out["main"].pop("engine"), out["main"].pop("prompt")
+    out["profile"] = phase_profile(engine, prompt)
+    out["rt"] = phase_rt(cfg, out["main"]["rounds"][-1]["decode_s_per_tok"])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
-    def bound_by(rs):
-        return "bytes" if total("bytes_ms", rs) >= total("ops_ms", rs) else "operations"
 
-    mm = {
-        "name": "persistent_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/persistent_matmul.cu",
-        "replaces": "src/repro/kernels/persistent_matmul.py:59",
-        "launches": main["launches"]["persistent_matmul"],
-        "max_abs_err": kern["matmul_err"],
-        "ms": total("ms", rows), "plain_ms": total("plain_ms", rows),
-        "bound_ms": total("bound_ms", rows),
-        "bound_by": bound_by(rows),
-        "library_ms": total("library_ms", rows),
-    }
-    fl = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:85",
-        "launches": main["launches"]["flash_attention"],
-        "max_abs_err": kern["flash_err"],
-        "ms": total("ms", [fr]), "plain_ms": total("plain_ms", [fr]),
-        "bound_ms": total("bound_ms", [fr]), "bound_by": bound_by([fr]),
-        "library_ms": total("library_ms", [fr]),
-    }
-    return {"kernels": [mm, fl]}
+def jamba_one_period():
+    """jamba-v0.1-52b at full width, cut in depth to one period."""
+    from repro_torch.configs import get_config
+
+    full = get_config("jamba-v0.1-52b")
+    cut = dataclasses.replace(full, n_repeats=1)
+    print(f"[jamba] cut: n_repeats {full.n_repeats} -> 1 ({full.n_layers} -> {cut.n_layers} "
+          f"layers): {full.param_count() * 2 / 1e9:.1f} GB of bf16 weights exceed the card's "
+          f"80 GB; one period holds {cut.param_count() * 2 / 1e9:.1f} GB; every width as "
+          f"published")
+    return cut
+
+
+def kernels_line(paths: list[dict]) -> dict:
+    def total(key, rows):
+        return sum(r["calls"] * r[key] for r in rows)
+
+    def entry(name, rows_key, err_key, replaces):
+        rows = [r for p in paths for r in p["kernels"][rows_key]]
+        errs = [p["kernels"][err_key] for p in paths if err_key in p["kernels"]]
+        has_library = all(r["library_ms"] is not None for r in rows)
+        return {
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": sum(p["main"]["launches"][name] for p in paths),
+            "max_abs_err": max(errs),
+            "ms": total("ms", rows), "plain_ms": total("plain_ms", rows),
+            "bound_ms": total("bound_ms", rows),
+            "bound_by": ("bytes" if total("bytes_ms", rows) >= total("ops_ms", rows)
+                         else "operations"),
+            "library_ms": total("library_ms", rows) if has_library else None,
+        }
+
+    return {"kernels": [
+        entry("persistent_matmul", "matmul_rows", "matmul_err",
+              "src/repro/kernels/persistent_matmul.py:59"),
+        entry("flash_attention", "flash_rows", "flash_err",
+              "src/repro/kernels/flash_attention.py:85"),
+        entry("selective_scan", "scan_rows", "scan_err",
+              "src/repro/kernels/selective_scan.py:45"),
+    ]}
 
 
 def main() -> int:
@@ -522,21 +790,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
 
-    cfg = get_config("qwen3-0.6b")
     report: dict = {}
     t0 = time.perf_counter()
     try:
         report["device"] = phase_device()
         report["build"] = phase_build()
-        report["kernels"] = phase_kernels(cfg, report["device"]["sms"])
-        report["main"] = phase_main_path(cfg)
-        report["profile"] = phase_profile(report["main"].pop("engine"),
-                                          report["main"].pop("prompt"))
-        report["rt"] = phase_rt(cfg, report["main"]["rounds"][-1]["decode_s_per_tok"])
+        sms = report["device"]["sms"]
+        report["qwen3-0.6b"] = run_path(get_config("qwen3-0.6b"), phase_kernels_qwen, sms)
+        report["jamba-v0.1-52b"] = run_path(jamba_one_period(), phase_kernels_jamba, sms)
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
         return 1
-    line = kernels_line(report["kernels"], report["main"])
+    line = kernels_line([report["qwen3-0.6b"], report["jamba-v0.1-52b"]])
     report["kernels_line"] = line
     report["seconds"] = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)

@@ -5,9 +5,9 @@ Holds the archs ported so far; ROADMAP.md lists the others.
 """
 from __future__ import annotations
 
-from . import qwen3_0_6b
+from . import jamba_52b, qwen3_0_6b
 
-_MODULES = {m.ARCH_ID: m for m in (qwen3_0_6b,)}
+_MODULES = {m.ARCH_ID: m for m in (qwen3_0_6b, jamba_52b)}
 
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)
 

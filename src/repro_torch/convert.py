@@ -7,7 +7,8 @@ Input is the JAX tree as nested dicts/tuples of numpy arrays (e.g.
   transposed into ``nn.Linear``'s layout;
 * layer parameters stacked ``[n_repeats, ...]`` per pattern position are
   unstacked: layer ``r * len(pattern) + pos`` takes slice ``r`` of
-  position ``pos``.
+  position ``pos`` (Mamba and MoE leaves too: an expert tensor
+  ``[n_repeats, E, d, f]`` becomes ``[E, d, f]``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import KVCache
+from repro_torch.models.mamba import MambaState
 
 __all__ = ["params_from_jax", "caches_from_jax"]
 
@@ -53,14 +55,15 @@ def params_from_jax(params: Mapping[str, Any], cfg, device="cpu") -> dict[str, t
 
 
 def caches_from_jax(caches, cfg, device="cpu") -> list[dict]:
-    """Per-layer ``{"kv": KVCache}`` from the JAX caches (a tuple over
-    pattern positions of ``{"kv": KVCache}`` stacked over repeats)."""
+    """Per-layer ``{"kv": KVCache}`` or ``{"ssm": MambaState}`` from the JAX
+    caches (a tuple over pattern positions of such dicts stacked over
+    repeats)."""
     n_pos = len(cfg.pattern)
     out: list = [None] * cfg.n_layers
     for pos, stacked in enumerate(caches):
-        k, v = (np.asarray(a) for a in stacked["kv"])
+        (key, state), = stacked.items()
+        kind = KVCache if key == "kv" else MambaState
+        leaves = [np.asarray(a) for a in state]
         for r in range(cfg.n_repeats):
-            out[r * n_pos + pos] = {"kv": KVCache(
-                k=_tensor(k[r], device), v=_tensor(v[r], device),
-            )}
+            out[r * n_pos + pos] = {key: kind(*(_tensor(a[r], device) for a in leaves))}
     return out

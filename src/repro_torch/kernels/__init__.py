@@ -4,6 +4,7 @@ their plain PyTorch versions.
 ref.py                 plain versions (CPU tensors and on-card comparison)
 persistent_matmul.py   Algorithm 1: persistent CTAs pinned to SMs by %smid
 flash_attention.py     causal (+ sliding-window) flash attention
+selective_scan.py      Mamba's SSM recurrence, state carried in and out
 ops.py                 model-facing wrappers (GQA expansion, head flattening)
 _build.py              nvcc into ``build/`` at first use, loaded with ctypes
 """

@@ -1,8 +1,9 @@
 """Model-facing wrappers around the hand kernels.
 
 They adapt model-layer shapes to kernel layouts (GQA expansion, head
-flattening).  A CPU tensor goes to the kernel's plain PyTorch version, a
-CUDA tensor to the kernel; there is no other fallback.  The TPU wrappers'
+flattening, contiguous scan operands).  A CPU tensor goes to the kernel's
+plain PyTorch version, a CUDA tensor to the kernel; there is no other
+fallback.  The TPU wrappers'
 divisibility rules do not apply: the CUDA kernels mask ragged edges.
 """
 from __future__ import annotations
@@ -13,9 +14,10 @@ import torch
 
 from .flash_attention import flash_attention
 from .persistent_matmul import persistent_matmul
-from .ref import flash_attention_ref, matmul_ref
+from .ref import flash_attention_ref, matmul_ref, selective_scan_ref
+from .selective_scan import selective_scan
 
-__all__ = ["pinned_matmul", "mha_flash"]
+__all__ = ["pinned_matmul", "mha_flash", "mamba_scan"]
 
 
 def _pick_block(n: int, target: int) -> int:
@@ -48,3 +50,14 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     attend = flash_attention_ref if q.device.type == "cpu" else flash_attention
     out = attend(qf, kf, vf, scale=scale, window=window)
     return out.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
+
+
+def mamba_scan(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """abar/bx [B, S, D, N], c [B, S, N], h0 [B, D, N] or None (zeros) ->
+    (y [B, S, D] f32, final state [B, D, N] f32).  The TPU wrapper's chunk
+    and d_block choices do not change the result, so none is made here."""
+    if abar.device.type == "cpu":
+        return selective_scan_ref(abar, bx, c, h0)
+    return selective_scan(abar.contiguous(), bx.contiguous(), c.contiguous(),
+                          None if h0 is None else h0.contiguous())

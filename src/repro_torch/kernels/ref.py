@@ -9,7 +9,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["matmul_ref", "flash_attention_ref"]
+__all__ = ["matmul_ref", "flash_attention_ref", "selective_scan_ref"]
 
 
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -31,3 +31,18 @@ def flash_attention_ref(q, k, v, *, scale: float, window: Optional[int] = None):
     return torch.einsum(
         "bqk,bkd->bqd", probs.to(v.dtype).float(), v.float()
     ).to(q.dtype)
+
+
+def selective_scan_ref(abar, bx, c, h0=None):
+    """abar/bx [B, S, D, N], c [B, S, N], h0 [B, D, N] (zeros if None) ->
+    (y [B, S, D], final state [B, D, N]), a loop over t in float32."""
+    b, s, d, n = abar.shape
+    if h0 is None:
+        h = torch.zeros((b, d, n), dtype=torch.float32, device=abar.device)
+    else:
+        h = h0.float()
+    ys = []
+    for t in range(s):
+        h = abar[:, t].float() * h + bx[:, t].float()
+        ys.append((h * c[:, t, None, :].float()).sum(-1))
+    return torch.stack(ys, dim=1), h

@@ -1,8 +1,10 @@
 """Decoder-block assembly: (norm → mixer → residual) → (norm → ffn → residual).
 
-Counterpart of ``repro.models.blocks`` for the (attn, mlp) layer spec.
-Caches are per-layer dicts ``{"kv": KVCache}``.  Other mixers and ffns
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Counterpart of ``repro.models.blocks`` for the attn and mamba mixers and
+the mlp and moe ffns.  Caches are per-layer dicts: ``{"kv": KVCache}`` for
+attention, ``{"ssm": MambaState}`` for Mamba.  The MoE aux loss is dropped
+in serving.  xLSTM mixers raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
@@ -12,17 +14,17 @@ import torch
 from torch import nn
 
 from . import attention as attn
+from . import mamba as mb
 from .config import LayerSpec, ModelConfig
 from .layers import MLP, Norm, apply_norm, init_norm, mlp
+from .moe import MoE, moe_ffn
 
 __all__ = ["Block", "init_block", "init_block_cache", "block_prefill",
            "block_decode"]
 
 _TODO = {
-    "mamba": "ROADMAP 'Modules to port': Mamba (jamba-v0.1-52b)",
     "mlstm": "ROADMAP 'Modules to port': xLSTM (xlstm-350m)",
     "slstm": "ROADMAP 'Modules to port': xLSTM (xlstm-350m)",
-    "moe": "ROADMAP 'Modules to port': MoE (phi3.5-moe, dbrx-132b)",
 }
 
 
@@ -33,17 +35,24 @@ def _check_spec(spec: LayerSpec) -> None:
 
 
 class Block(nn.Module):
-    """norm1, mixer (Attention), and for ffn != none: norm2, ffn (MLP)."""
+    """norm1, mixer (Attention or Mamba), and for ffn != none: norm2, ffn
+    (MLP or MoE)."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, dtype, device):
         super().__init__()
         _check_spec(spec)
         self.spec = spec
         self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.mixer = attn.Attention(cfg, dtype, device)
+        if spec.mixer == "attn":
+            self.mixer = attn.Attention(cfg, dtype, device)
+        else:
+            self.mixer = mb.Mamba(cfg, dtype, device)
         if spec.ffn != "none":
             self.norm2 = Norm(cfg.norm, cfg.d_model, dtype, device)
-            self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+            if spec.ffn == "mlp":
+                self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+            else:
+                self.ffn = MoE(cfg, dtype, device)
 
 
 def init_block(block: Block, gen: torch.Generator) -> None:
@@ -58,6 +67,8 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device):
     """Zero-initialized per-layer cache for decode."""
     _check_spec(spec)
+    if spec.mixer == "mamba":
+        return {"ssm": mb.init_mamba_state(cfg, batch, device)}
     kvshape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"kv": attn.KVCache(
         k=torch.zeros(kvshape, dtype=dtype, device=device),
@@ -66,29 +77,39 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def _ffn_apply(p: Block, cfg, spec: LayerSpec, x):
+    """-> (x, MoE aux loss or 0.0)."""
     if spec.ffn == "none":
-        return x
+        return x, 0.0
     h = apply_norm(p.norm2, x, cfg.norm)
-    return x + mlp(p.ffn, h)
+    if spec.ffn == "mlp":
+        return x + mlp(p.ffn, h), 0.0
+    y, aux = moe_ffn(p.ffn, cfg, h)
+    return x + y, aux
 
 
 def block_prefill(p: Block, cfg, spec: LayerSpec, x, cache,
                   window: Optional[int] = None):
     """Runs the block over the prompt; writes the prompt's K/V into the
-    cache buffer at offset 0 (in place)."""
+    cache buffer at offset 0 (in place), or sets the final Mamba state."""
     h = apply_norm(p.norm1, x, cfg.norm)
-    y, kv = attn.attention_prefill(p.mixer, cfg, h, window)
-    x = x + y
-    buf = cache["kv"]
-    s = kv.k.shape[1]
-    buf.k[:, :s] = kv.k.to(buf.k.dtype)
-    buf.v[:, :s] = kv.v.to(buf.v.dtype)
-    return _ffn_apply(p, cfg, spec, x), cache
+    if spec.mixer == "attn":
+        y, kv = attn.attention_prefill(p.mixer, cfg, h, window)
+        buf = cache["kv"]
+        s = kv.k.shape[1]
+        buf.k[:, :s] = kv.k.to(buf.k.dtype)
+        buf.v[:, :s] = kv.v.to(buf.v.dtype)
+    else:
+        y, cache["ssm"] = mb.mamba_prefill(p.mixer, cfg, h)
+    x, _ = _ffn_apply(p, cfg, spec, x + y)
+    return x, cache
 
 
 def block_decode(p: Block, cfg, spec: LayerSpec, x, cache, cache_len,
                  window: Optional[int] = None):
     h = apply_norm(p.norm1, x, cfg.norm)
-    y, _ = attn.attention_decode(p.mixer, cfg, h, cache["kv"], cache_len, window)
-    x = x + y
-    return _ffn_apply(p, cfg, spec, x), cache
+    if spec.mixer == "attn":
+        y, _ = attn.attention_decode(p.mixer, cfg, h, cache["kv"], cache_len, window)
+    else:
+        y, cache["ssm"] = mb.mamba_decode(p.mixer, cfg, h, cache["ssm"])
+    x, _ = _ffn_apply(p, cfg, spec, x + y)
+    return x, cache

@@ -1,7 +1,8 @@
 """Model: a decoder of per-layer modules, with prefill and decode entry points.
 
-Counterpart of ``repro.models.model.Model`` for attn+mlp decoders.  The JAX
-model scans stacked repeats; here ``layers`` is a ``ModuleList`` with one
+Counterpart of ``repro.models.model.Model`` for decoders of attention or
+Mamba mixers with MLP or MoE ffns (qwen3, jamba).  The JAX model scans
+stacked repeats; here ``layers`` is a ``ModuleList`` with one
 :class:`Block` per layer (layer ``r * len(pattern) + pos`` is pattern
 position ``pos`` of repeat ``r``).  Parameter names follow the JAX tree:
 ``embed.w``, ``final_norm.w``, ``layers.<i>.mixer.wq``, ... .
@@ -11,8 +12,8 @@ Entry points:
   prefill(tokens, caches)                  -> (last_logits, caches)
   decode_step(token, caches, cache_len)    -> (logits, caches)
 
-Caches are written in place.  Every projection runs on all SMs; training
-waits for a later slice.
+Caches are written in place.  Every projection runs on all SMs; the MoE
+aux loss is dropped in serving; training waits for a later slice.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ card set to a lower limit runs below them.  The HLO analyzer of
 """
 from __future__ import annotations
 
-__all__ = ["PEAK_FLOPS", "HBM_BW"]
+__all__ = ["PEAK_FLOPS", "PEAK_FLOPS_F32", "HBM_BW"]
 
 PEAK_FLOPS = 989e12  # dense bf16 tensor-core FLOP/s
+PEAK_FLOPS_F32 = 67e12  # float32 FLOP/s outside the tensor cores
 HBM_BW = 3.35e12     # HBM3 bytes/s

@@ -15,8 +15,10 @@ from repro.kernels import ops as jops
 from repro.kernels import persistent_matmul as jpm
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.selective_scan import selective_scan as jscan
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.persistent_matmul import (
     persistent_matmul,
     persistent_matmul_traced,
@@ -147,6 +149,64 @@ class TestFlashParity:
         np.testing.assert_allclose(got, want, rtol=3e-2, atol=3e-2)
 
 
+def _scan_inputs(seed, b, s, d, n):
+    """tests/test_kernels.py::TestSelectiveScan's inputs, made with numpy."""
+    abar = 1.0 / (1.0 + np.exp(-_rand(seed, (b, s, d, n))))  # stable
+    return abar.astype(np.float32), _rand(seed + 1, (b, s, d, n)) * 0.1, _rand(seed + 2, (b, s, n))
+
+
+class TestSelectiveScanParity:
+    @pytest.mark.parametrize("s,d,n", [(64, 32, 8), (128, 64, 16), (96, 48, 4)])
+    def test_ref_matches_pallas(self, s, d, n):
+        (aj, at), (bj, bt), (cj, ct) = (_both(a) for a in _scan_inputs(0, 2, s, d, n))
+        want = np.asarray(jscan(aj, bj, cj, chunk=32, d_block=16, interpret=True))
+        y, h = ref.selective_scan_ref(at, bt, ct)
+        np.testing.assert_allclose(y.numpy(), want, rtol=1e-4, atol=1e-4)
+        y_ops, h_ops = ops.mamba_scan(at, bt, ct)
+        assert torch.equal(y_ops, y) and torch.equal(h_ops, h)
+
+    @pytest.mark.parametrize("split", [1, 37, 64])
+    def test_state_carried_across_a_split_is_the_whole_scan(self, split):
+        """The final state and h0 chain two scans into one, as the model's
+        time chunks do."""
+        at, bt, ct = (torch.from_numpy(a) for a in _scan_inputs(3, 2, 96, 24, 16))
+        y, h = ref.selective_scan_ref(at, bt, ct)
+        y1, h1 = ref.selective_scan_ref(at[:, :split], bt[:, :split], ct[:, :split])
+        y2, h2 = ref.selective_scan_ref(at[:, split:], bt[:, split:], ct[:, split:], h1)
+        np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), y.numpy(), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(h2.numpy(), h.numpy(), rtol=1e-6, atol=1e-6)
+
+    def test_chunked_carry_matches_jax_ssm_scan_chunked(self):
+        """At the jamba smoke config: the port's chunked scan (the state
+        handed from chunk to chunk through ops.mamba_scan) against JAX
+        ssm_scan_chunked's y without d_skip and its h_final, and against
+        the Pallas kernel on JAX's own abar/bx."""
+        import jax
+
+        from repro.configs import get_smoke_config as jax_smoke_config
+        from repro.models.mamba import _ssm_params, init_mamba
+        from repro.models.mamba import ssm_scan_chunked as jax_chunked
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models.mamba import Mamba, ssm_scan_chunked
+
+        jcfg = jax_smoke_config("jamba-v0.1-52b")
+        params = init_mamba(jax.random.PRNGKey(0), jcfg, jnp.float32)
+        mixer = Mamba(get_smoke_config("jamba-v0.1-52b"), torch.float32, "cpu")
+        mixer.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in params.items()})
+        xcj, xct = _both(_rand(9, (2, 64, jcfg.d_inner)) * 0.1)
+
+        y_jax, h_jax = jax_chunked(params, xcj, chunk=16)
+        y_jax = np.asarray(y_jax - xcj * params["d_skip"])
+        with torch.inference_mode():
+            y, h = ssm_scan_chunked(mixer, xct, chunk=16)
+        np.testing.assert_allclose((y - xct * mixer.d_skip).numpy(), y_jax, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(h.numpy(), np.asarray(h_jax), rtol=1e-4, atol=1e-4)
+
+        abar, bx, c_t = _ssm_params(params, xcj)
+        y_pallas = jscan(abar, bx, c_t, chunk=16, d_block=64, interpret=True)
+        np.testing.assert_allclose(y_jax, np.asarray(y_pallas), rtol=1e-4, atol=1e-4)
+
+
 class TestWrappers:
     def test_cpu_calls_leave_launch_counters_at_zero(self):
         x, w = torch.randn(8, 16), torch.randn(16, 24)
@@ -163,6 +223,19 @@ class TestWrappers:
         with pytest.raises(ValueError):
             flash_attention(torch.randn(1, 8, 32), torch.randn(1, 8, 32),
                             torch.randn(1, 8, 32), scale=0.1)
+
+    def test_cpu_scan_leaves_its_launch_counter_at_zero(self):
+        at, bt, ct = (torch.from_numpy(a) for a in _scan_inputs(4, 1, 8, 4, 16))
+        y, h = ops.mamba_scan(at, bt, ct, torch.zeros(1, 4, 16))
+        assert y.shape == (1, 8, 4) and h.shape == (1, 4, 16)
+        assert selective_scan.launches == 0
+
+    @pytest.mark.parametrize("with_h0", [False, True])
+    def test_scan_wrapper_refuses_cpu_tensors(self, with_h0):
+        at, bt, ct = (torch.from_numpy(a) for a in _scan_inputs(5, 1, 8, 4, 16))
+        with pytest.raises(ValueError, match="CUDA"):
+            selective_scan(at, bt, ct, torch.zeros(1, 4, 16) if with_h0 else None)
+        assert selective_scan.launches == 0
 
 
 class TestOnCard:
@@ -197,3 +270,15 @@ class TestOnCard:
         got = flash_attention(q, k, v, scale=0.125, window=window)
         want = ref.flash_attention_ref(q, k, v, scale=0.125, window=window)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("s,d,n", [(1, 100, 16), (77, 300, 8), (200, 70, 4), (256, 512, 16)])
+    def test_selective_scan_matches_ref(self, s, d, n, c_dtype):
+        self._need_card()
+        abar, bx, c = (torch.from_numpy(a).cuda() for a in _scan_inputs(6, 2, s, d, n))
+        h0 = torch.randn(2, d, n, device="cuda")
+        for h in (None, h0):
+            got = selective_scan(abar, bx, c.to(c_dtype), h)
+            want = ref.selective_scan_ref(abar, bx, c.to(c_dtype), h)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

@@ -37,11 +37,17 @@ def tiny_pair(n_repeats=2):
                  dtype="float32")
 
 
-def smoke_pair():
-    return jax_smoke_config("qwen3-0.6b"), get_smoke_config("qwen3-0.6b")
+def smoke_pair(arch="qwen3-0.6b"):
+    return jax_smoke_config(arch), get_smoke_config(arch)
 
 
-CONFIGS = {"tiny": tiny_pair, "qwen3-0.6b-smoke": smoke_pair}
+def jamba_smoke_pair():
+    """One Mamba layer with an MLP, one attention layer with an MoE."""
+    return smoke_pair("jamba-v0.1-52b")
+
+
+CONFIGS = {"tiny": tiny_pair, "qwen3-0.6b-smoke": smoke_pair,
+           "jamba-v0.1-52b-smoke": jamba_smoke_pair}
 
 
 def _build(pair, seed=0):
@@ -61,8 +67,11 @@ def _assert_caches_equal(jax_caches, port_caches, cfg):
     want = caches_from_jax(jax.tree_util.tree_map(np.asarray, jax_caches), cfg)
     assert len(want) == len(port_caches) == cfg.n_layers
     for w, g in zip(want, port_caches):
-        np.testing.assert_allclose(g["kv"].k.numpy(), w["kv"].k.numpy(), **TOL)
-        np.testing.assert_allclose(g["kv"].v.numpy(), w["kv"].v.numpy(), **TOL)
+        assert set(g) == set(w)
+        for key in w:  # "kv": (k, v); "ssm": (conv, ssm)
+            for got, exp in zip(g[key], w[key]):
+                assert got.dtype == exp.dtype and got.shape == exp.shape
+                np.testing.assert_allclose(got.numpy(), exp.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -76,8 +85,9 @@ def test_full_config_matches_jax():
     from repro.configs import get_config as jax_get_config
     from repro_torch.configs import get_config
 
-    assert dataclasses.asdict(jax_get_config("qwen3-0.6b")) == \
-        dataclasses.asdict(get_config("qwen3-0.6b"))
+    for arch in ("qwen3-0.6b", "jamba-v0.1-52b"):
+        assert dataclasses.asdict(jax_get_config(arch)) == dataclasses.asdict(get_config(arch))
+        assert jax_get_config(arch).param_count() == get_config(arch).param_count()
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -185,10 +195,35 @@ def test_default_device_is_the_card():
         Model(tiny_pair()[1])
 
 
-@pytest.mark.parametrize("mixer,ffn", [("mamba", "mlp"), ("attn", "moe"), ("mlstm", "none")])
-def test_unported_layers_raise(mixer, ffn):
+@pytest.mark.parametrize("mixer,ffn,n_enc_layers",
+                         [("mlstm", "none", 0), ("slstm", "mlp", 0), ("attn", "mlp", 2)])
+def test_unported_layers_raise(mixer, ffn, n_enc_layers):
     _, tcfg = _pair(name="x", arch_type="hybrid", d_model=32, n_heads=2, n_kv_heads=2,
                     d_ff=64, vocab=64, n_repeats=1, n_experts=4, top_k=2,
+                    n_enc_layers=n_enc_layers, enc_ctx=8 * n_enc_layers,
                     pattern=((mixer, ffn),), dtype="float32")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(tcfg, device="cpu")
+
+
+def test_jamba_prefill_moe_aux_matches_jax(monkeypatch):
+    """Serving drops the MoE aux loss; recorded at each block, its sum is
+    the JAX prefill's aux."""
+    from repro_torch.models import blocks
+
+    auxes = []
+    ffn_apply = blocks._ffn_apply
+
+    def recording(*args):
+        x, aux = ffn_apply(*args)
+        auxes.append(float(aux))
+        return x, aux
+
+    monkeypatch.setattr(blocks, "_ffn_apply", recording)
+    jm, params, model = _build(jamba_smoke_pair(), seed=2)
+    toks = _tokens(8, (2, 24), jm.cfg.vocab)
+    _, _, want = jm.prefill(params, jnp.asarray(toks), jm.init_caches(2, 32))
+    with torch.inference_mode():
+        model.prefill(torch.as_tensor(toks), model.init_caches(2, 32))
+    assert len(auxes) == model.cfg.n_layers and float(want) > 0
+    np.testing.assert_allclose(sum(auxes), float(want), **TOL)
