@@ -11,10 +11,11 @@ Runs from the repository root and imports only ``repro_torch`` (from
 3. qwen3-0.6b path:
    a. kernels against their plain PyTorch versions on the card, at the
       path's shapes: persistent_matmul (bf16 and f32, n_bands in {1, 8,
-      all SMs}: tile coverage, the allocated-SM check, bit-identity across
-      band counts) and flash_attention (prefill shape, sliding window,
-      ragged S); each kernel's device time (CUDA-graph replay) beside its
-      plain version, a library yardstick and its bound, and its time when
+      all SMs}: work-unit coverage, the allocated-SM check, bit-identity
+      across band counts; ragged K, N and M) and flash_attention (prefill
+      shape, sliding window, ragged S); each kernel's device time
+      (CUDA-graph replay) beside its plain version, a library yardstick
+      and its bound (and GB/s for the M <= 4 matmul), and its time when
       issued eagerly;
    b. main path: full-width qwen3-0.6b in bf16 (random weights from a seed)
       through ``ServingEngine.generate``, two rounds of 4 requests of 256
@@ -30,7 +31,8 @@ Runs from the repository root and imports only ``repro_torch`` (from
    the qwen engine is freed: the same four phases, with selective_scan
    held to its plain version at the prefill chunk's shape (h0 none, zero
    and random; c in f32 and bf16) and at ragged shapes, and the pinned
-   matmul checked and timed at jamba's projection shapes.
+   matmul checked (at every band count where K is split) and timed at
+   jamba's projection shapes.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches and times
 summed over both paths) and, last, ``{"ok": true, ...}``.  Details go to
@@ -251,6 +253,9 @@ def phase_build() -> dict:
 
 
 def check_matmul(m, k, n, dtype, gen, band_counts) -> float:
+    """The kernel against matmul_ref: every work unit computed once, on an
+    SM of its band, at each band count; bit-identical outputs across band
+    counts and between traced and untraced launches."""
     import torch
     from repro_torch.kernels.persistent_matmul import (
         persistent_matmul, persistent_matmul_traced, tile_grid)
@@ -263,15 +268,15 @@ def check_matmul(m, k, n, dtype, gen, band_counts) -> float:
     for n_bands in band_counts:
         got, trace = persistent_matmul_traced(x, w, n_bands)
         torch.cuda.synchronize()
-        _, _, total, per_lane = tile_grid(m, n, n_bands)
+        g = tile_grid(m, k, n, dtype, n_bands)
         hits = trace.tile_hits.cpu()
-        check(trace.tiles_done == total and bool((hits == 1).all()),
-              f"matmul {m}x{k}x{n} n_bands={n_bands}: {trace.tiles_done} of {total} "
-              f"tiles done, hits {hits.min().item()}..{hits.max().item()}")
-        owner = torch.tensor([trace.allowed_sms[t // (2 * per_lane)] for t in range(total)],
+        check(trace.tiles_done == g.units == hits.numel() and bool((hits == 1).all()),
+              f"matmul {m}x{k}x{n} n_bands={n_bands}: {trace.tiles_done} of {g.units} "
+              f"units done, hits {hits.min().item()}..{hits.max().item()}")
+        owner = torch.tensor([trace.allowed_sms[u // (2 * g.per_lane)] for u in range(g.units)],
                              dtype=torch.int32)
         check(torch.equal(trace.tile_sm.cpu(), owner),
-              f"matmul {m}x{k}x{n} n_bands={n_bands}: a tile ran off its band's SM")
+              f"matmul {m}x{k}x{n} n_bands={n_bands}: a unit ran off its band's SM")
         outs.append(got)
     for n_bands, o in zip(band_counts[1:], outs[1:]):
         check(torch.equal(o, outs[0]),
@@ -286,6 +291,21 @@ def check_matmul(m, k, n, dtype, gen, band_counts) -> float:
                             atol=MATMUL_BF16_TOL)
     check(ok, f"matmul {m}x{k}x{n} {dtype}: max abs err {err}")
     return err
+
+
+def split(m, k, n, dtype) -> bool:
+    """Whether the plan splits K for this shape (shape alone, any n_bands)."""
+    from repro_torch.kernels.persistent_matmul import tile_grid
+
+    return tile_grid(m, k, n, dtype, 1).n_slices > 1
+
+
+# Ragged cases: K not a multiple of the slice, N narrow (16, 33) and not a
+# multiple of 8 (130), or past one decode unit and not a multiple of it
+# (600); every variant, element loads and bulk copies.
+RAGGED_MATMUL = [(m, k, n) for m in (3, 4, 100, 512) for k in (200, 1000)
+                 for n in (16, 33, 130)] + [(m, 200, n) for m in (3, 16, 100) for n in (130, 136)] \
+    + [(m, 1000, 600) for m in (3, 4)]  # a decode unit cut short at N
 
 
 def check_flash(b, s, h, hkv, hd, dtype, window, gen) -> float:
@@ -366,10 +386,15 @@ def matmul_rows(cfg, calls: dict, gen) -> list[dict]:
             "library_ms": time_ms(cycling(torch.matmul, args), iters),
             **bound((m * k + k * n + m * n) * eb, 2.0 * m * n * k, f32=dt == torch.float32),
         })
+        rows[-1]["gb_s"] = (m * k + k * n + m * n) * eb / rows[-1]["ms"] / 1e6
         del ws, args
+
+    def gb_s(r):  # achieved rate where the launch is bound by bytes (decode)
+        return f", {r['gb_s']:.0f} GB/s" if r["m"] <= 4 else ""
+
     for r in rows:
         print(f"[kernels] {cfg.name} matmul M={r['m']} K={r['k']} N={r['n']} {r['dtype']} "
-              f"x{r['calls']}: {r['ms']:.4f} ms (issued eagerly {r['eager_ms']:.4f}; plain "
+              f"x{r['calls']}: {r['ms']:.4f} ms{gb_s(r)} (issued eagerly {r['eager_ms']:.4f}; plain "
               f"{r['plain_ms']:.4f}, torch.matmul {r['library_ms']:.4f}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']})")
     return rows
@@ -447,9 +472,9 @@ def phase_kernels_qwen(cfg, n_sms) -> dict:
     for m, k, n, _ in calls:
         for dtype in (torch.bfloat16, torch.float32):
             mm_err[(m, k, n, str(dtype))] = check_matmul(m, k, n, dtype, gen, (1, 8, n_sms))
-    ragged = [(m, 200, n, dtype) for m in (3, 16, 100) for n in (130, 136)
+    ragged = [(m, k, n, dtype) for m, k, n in RAGGED_MATMUL
               for dtype in (torch.float32, torch.bfloat16)]
-    for m, k, n, dtype in ragged:  # ragged edges, every tile variant, scalar and vector loads
+    for m, k, n, dtype in ragged:
         check_matmul(m, k, n, dtype, gen, (1, 8, n_sms))
     print(f"[kernels] persistent_matmul: {len(mm_err) + len(ragged)} shapes x 3 band counts ok; "
           f"max abs err bf16 {max(v for key, v in mm_err.items() if 'bfloat16' in key[3]):.3g}, "
@@ -501,8 +526,11 @@ def phase_kernels_jamba(cfg, n_sms) -> dict:
 
     # persistent_matmul at jamba's projection shapes, all SMs; flash at its head shape
     calls = matmul_calls(cfg)
-    mm_err = {key: check_matmul(*key[:3], getattr(torch, key[3]), gen, (n_sms,))
-              for key in calls}
+    mm_err = {}
+    for m, k, n, dt_name in calls:  # all band counts where K is split, else all SMs
+        dtype = getattr(torch, dt_name)
+        mm_err[(m, k, n, dt_name)] = check_matmul(
+            m, k, n, dtype, gen, (1, 8, n_sms) if split(m, k, n, dtype) else (n_sms,))
     print(f"[kernels] persistent_matmul at {len(mm_err)} jamba shapes ok; max abs err "
           f"{max(mm_err.values()):.3g}")
     fl_err = check_flash(BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt, None, gen)

@@ -9,28 +9,60 @@
 // CTA on a foreign SM returns at once.  On an allocated SM, a per-band
 // atomic counter hands out lanes 0 and 1 (the paper's two self-interleaved
 // halves); later CTAs on that SM return.  Lane `lane` of band `b` walks the
-// tiles linear = b*2T + step*2 + lane, T = ceil(tiles / (2*n_bands)), the
-// TPU kernel's tile_of map, and masks tiles and edges past the end.
+// work units linear = b*2T + step*2 + lane, T = ceil(units / (2*n_bands)),
+// the TPU kernel's tile_of map, and masks units and edges past the end.
+//
+// Work units: a unit is (row tile, col tile, K slice), linear = tile * S +
+// slice.  The slice count S and length are a function of the shape alone
+// (persistent_matmul.py::split_plan), never of n_bands or the card: S = 1
+// where the tiles fill 2 x 132 lanes, else the slice length (a multiple of
+// the variant's K step; the last slice ragged) that minimises a lane's
+// estimated time.  With S = 1 a unit writes its tile.  With S > 1 it writes
+// a float32 partial to the workspace [S, M, N], fences, and adds one to its
+// tile's arrival counter; the unit that arrives last fences, reads the S
+// partials through L2 (ld.global.cg) and sums them in slice order 0..S-1.
+// No CTA ever waits for another: with pinning, the lanes that would
+// release it may be queued behind it on the same SM.
 //
 // Completion: the hardware scheduler decides where CTAs land.  Launching
 // 2 * (resident CTAs per SM) * (SMs) CTAs puts at least two on every SM in
-// the first wave, but nothing guarantees it, so every finished tile adds
-// one to `tiles_done`, and a traced launch records each tile's %smid and
+// the first wave, but nothing guarantees it, so every finished unit adds
+// one to `units_done`, and a traced launch records each unit's %smid and
 // hit count for the caller to check.
 //
 // Bound on the H100: decode (M = 4) reads the weights once and is bound by
-// HBM bytes; prefill (M = 1024) is bound by operations.  Two tile shapes:
-//  * M <= 4 (decode): 4 x 16 tiles.  A CTA splits K over 128 row groups,
-//    each thread streams 8 columns with 16-byte loads (many in flight, to
-//    cover HBM latency), and the partial sums are reduced in a fixed order.
-//    Narrow tiles spread one projection's weights over many SMs.
+// HBM bytes; prefill (M = 1024) is bound by operations, but its narrow
+// shapes (N = 33, N = 16) have too few tiles to fill the card.  Variants:
+//  * M <= 4 (decode): a unit is 4 rows of x by 512 bytes of each weight
+//    row (256 bf16 or 128 float32 columns) over a K slice.  The weights
+//    stream through a 4-slot shared-memory ring of 16 KB stages fed by
+//    bulk copies (cp.async.bulk, the copy engine; L2 only, nothing kept in
+//    L1) that complete on one mbarrier per slot; three stages stay in
+//    flight while one is used, across stage and unit boundaries: 48 KB per
+//    lane, 96 KB per SM.  bf16 row segments go to the tensor cores
+//    (mma.sync m16n8k16, out^T = w^T x^T with x's 4 rows padded to 8;
+//    ldmatrix.trans reads w from rows padded to 528 bytes, so without bank
+//    conflicts) and x's fragments come through L1; each warp owns 32
+//    columns, so a unit needs no reduction across warps.  Where one unit
+//    spans all of N (x_proj's 33, the router's 16) a stage is one
+//    contiguous slab of the weights, one bulk copy whatever N's alignment
+//    (K % 8 == 0), with x's slice beside it, and CUDA-core FMAs over
+//    columns indexed in shared memory, reduced in a fixed order (row
+//    groups of a warp by shuffles, then the 8 warps in order).  Weights
+//    whose rows are not 16-byte aligned are loaded element by element.
+//    What bounds it: the HBM stream where the units fill the card; at
+//    small shapes the launch, the lane claim and the split's fence and
+//    arrival count, a few microseconds in all.
 //  * M > 16 in bfloat16 (prefill): 64 x 64 tiles on the tensor cores,
 //    mma.sync m16n8k16 with float32 accumulation; the next K step's tiles
 //    are loaded into registers while the current one is multiplied.  No
 //    TMA or wgmma yet, so it stays well below the bf16 peak.
 //  * otherwise (float32, or 4 < M <= 16): 16 x 64 or 64 x 64 tiles, IEEE
-//    FMAs on the CUDA cores from float32 tiles in shared memory.
-// Each tile's K order is fixed, which makes results bit-identical for
+//    FMAs on the CUDA cores from float32 tiles in shared memory, the next
+//    K step's values loaded into registers during the products.
+// The tiled variants take 16-byte loads of x where K % 8 == 0 and of w
+// where N % 8 == 0, each flag apart.  Each unit's K order is fixed and so
+// is the order of the partials' sum, which makes results bit-identical for
 // every band count.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,12 +76,54 @@ constexpr int kThreads = 256;
 constexpr int kBlockK = 32;
 constexpr int kBlockN = 64;
 constexpr int kMaxDevices = 64;
-// decode tiles
+// decode units
 constexpr int kGemvRows = 4;
-constexpr int kGemvCols = 16;
-constexpr int kGemvColGroups = kGemvCols / 8;
-constexpr int kGemvKRows = kThreads / kGemvColGroups;  // 128 row groups
-constexpr int kGemvChunk = 1024;                        // x columns staged per pass
+constexpr int kGemvRowBytes = 512;  // a unit's segment of a weight row: 256 bf16, 128 f32
+constexpr int kRing = 4;            // stages in the ring
+constexpr int kStageBytes = 16384;  // weights per stage
+constexpr int kMaxStageRows = 128;
+constexpr int kRowPad = 16;  // bytes after each 512-byte row segment: conflict-free ldmatrix
+constexpr int kWsBytes = kStageBytes + kStageBytes / kGemvRowBytes * kRowPad;
+constexpr int kMaxTcSteps = kStageBytes / kGemvRowBytes / 16;  // 16-row steps of a bf16 stage
+constexpr int kXStageBytes = kGemvRows * kMaxStageRows * 4;
+constexpr int kSlotBytes = kWsBytes + kXStageBytes;
+// the 8 warps' float32 sums of a unit (at most 256 columns)
+constexpr int kPartBytes = (kThreads / 32) * kGemvRows * 256 * 4;
+constexpr int kGemvSmem = kRing * kSlotBytes + kPartBytes;
+
+// One launch: operands, the unit plan, counters and the optional trace.
+struct Args {
+  const void* x;
+  const void* w;
+  void* out;
+  int M, N, K;
+  const int* sm_band;
+  int n_sm_ids;
+  int per_lane, n_tiles_n, n_slices, slice_len, total_units, stage_rows;
+  int* lane_ctr;
+  int* units_done;
+  int* arrive;  // one count per tile (split launches)
+  float* ws;    // [n_slices, M, N] partials (split launches)
+  int* unit_sm;
+  int* unit_hits;
+  int vec_x, vec_w;
+};
+
+// A unit's tile and K range.
+struct Unit {
+  int tile, slice, row0, col0, k_begin, k_end;
+};
+
+__device__ __forceinline__ Unit unit_at(const Args& a, int linear, int bm, int bn) {
+  Unit u;
+  u.tile = linear / a.n_slices;
+  u.slice = linear - u.tile * a.n_slices;
+  u.row0 = (u.tile / a.n_tiles_n) * bm;
+  u.col0 = (u.tile % a.n_tiles_n) * bn;
+  u.k_begin = u.slice * a.slice_len;
+  u.k_end = min(a.K, u.k_begin + a.slice_len);
+  return u;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -81,6 +155,10 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ unsigned sm_id() {
   unsigned r;
   asm volatile("mov.u32 %0, %%smid;" : "=r"(r));
@@ -93,17 +171,52 @@ __device__ __forceinline__ unsigned sm_id_bound() {
   return r;
 }
 
-// 8 values p[r][c..c+8) of a row-major [rows, cols] bf16 matrix, zero
-// outside it; one 16-byte load when `vec` (cols % 8 == 0, aligned base).
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
+}
+// The one arrival of a phase, expecting `bytes` of bulk copies.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// Waits for the phase of `parity` to complete.  A phase that never
+// completes is a fault in the byte count: trap after about 2**32 cycles
+// rather than hang the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+  const long long start = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n" : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 32)) __trap();
+  }
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared by the copy engine, completing on `bar`; cached in L2 only.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// 8 values p[r][c..c+8) of a row-major bf16 matrix with row stride ld, zero
+// outside rows x cols; one 16-byte load when `vec` (ld % 8 == 0, aligned
+// base).
 __device__ __forceinline__ uint4 load_row8(const __nv_bfloat16* p, int r, int c, int rows,
-                                           int cols, int vec) {
+                                           int ld, int cols, int vec) {
   if (r < rows && vec && c + 8 <= cols)
-    return *reinterpret_cast<const uint4*>(p + static_cast<size_t>(r) * cols + c);
+    return *reinterpret_cast<const uint4*>(p + static_cast<size_t>(r) * ld + c);
   uint4 u;
   __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&u);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
-    h[j] = (r < rows && c + j < cols) ? p[static_cast<size_t>(r) * cols + c + j]
+    h[j] = (r < rows && c + j < cols) ? p[static_cast<size_t>(r) * ld + c + j]
                                       : __float2bfloat16(0.f);
   return u;
 }
@@ -118,46 +231,98 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i..8i+7
+// give the row addresses of matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
 // The CTA's lane (0 or 1) on SM `sm` and the SM's band, or -1 when the CTA
 // must return: the SM is not allocated to this task, or both of its lanes
 // are taken.  Every thread of the CTA calls it.
-__device__ __forceinline__ int claim_lane(unsigned sm, const int* sm_band, int n_sm_ids,
-                                          int* lane_ctr, int* s_lane, int* band) {
-  *band = static_cast<int>(sm) < n_sm_ids ? sm_band[sm] : -1;
+__device__ __forceinline__ int claim_lane(unsigned sm, const Args& a, int* s_lane,
+                                          int* band) {
+  *band = static_cast<int>(sm) < a.n_sm_ids ? a.sm_band[sm] : -1;
   if (*band < 0) return -1;
-  if (threadIdx.x == 0) *s_lane = atomicAdd(&lane_ctr[*band], 1);
+  if (threadIdx.x == 0) *s_lane = atomicAdd(&a.lane_ctr[*band], 1);
   __syncthreads();
   return *s_lane < 2 ? *s_lane : -1;
 }
 
-// block_m x 64 output tiles; each thread owns a TM x TN micro-tile.
+// After a split unit's partials are written: true, in every thread, when
+// this CTA is the last of its tile's units to arrive.  Writers fence before
+// the count; the last arriver fences before it reads.  Nothing waits.
+__device__ __forceinline__ bool arrive_last(const Args& a, int tile, int* s_flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *s_flag = atomicAdd(&a.arrive[tile], 1) == a.n_slices - 1;
+  __syncthreads();
+  const bool last = *s_flag != 0;
+  if (last) __threadfence();
+  return last;
+}
+
+// The sum of the partials at `off` in slice order, read through L2, eight
+// loads in flight at a time.
+__device__ __forceinline__ float sum_partials(const Args& a, size_t off) {
+  const size_t stride = static_cast<size_t>(a.M) * a.N;
+  const float* p = a.ws + off;
+  float s = 0.f;
+  int i = 0;
+  for (; i + 8 <= a.n_slices; i += 8) {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = __ldcg(p + (i + j) * stride);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s += v[j];
+  }
+  for (; i < a.n_slices; ++i) s += __ldcg(p + i * stride);
+  return s;
+}
+
+__device__ __forceinline__ size_t partial_at(const Args& a, const Unit& u, size_t off) {
+  return static_cast<size_t>(u.slice) * a.M * a.N + off;
+}
+
+__device__ __forceinline__ void unit_done(const Args& a, int linear, unsigned sm) {
+  if (threadIdx.x == 0) {
+    atomicAdd(a.units_done, 1);
+    if (a.unit_sm != nullptr) {
+      a.unit_sm[linear] = static_cast<int>(sm);
+      atomicAdd(&a.unit_hits[linear], 1);
+    }
+  }
+}
+
+// block_m x 64 output tiles; each thread owns a TM x TN micro-tile.  The
+// next K step's x and w values are loaded into registers during the products.
 template <typename T, int BM, int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-pinned_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     T* __restrict__ out, int M, int N, int K,
-                     const int* __restrict__ sm_band, int n_sm_ids,
-                     int tiles_per_lane, int n_tiles_n, int total_tiles,
-                     int* lane_ctr, int* tiles_done, int* tile_sm,
-                     int* tile_hits, int /*vec: unused*/) {
+__global__ void __launch_bounds__(kThreads, 2) pinned_matmul_kernel(const Args a) {
   static_assert((BM / TM) * (kBlockN / TN) == kThreads, "thread layout");
+  constexpr int kLoadsA = BM * kBlockK / kThreads, kLoadsB = kBlockK * kBlockN / kThreads;
   __shared__ float As[kBlockK][BM + 1];  // x tile, transposed; +1 avoids bank conflicts
   __shared__ float Bs[kBlockK][kBlockN];
-  __shared__ int s_lane;
+  __shared__ int s_lane, s_flag;
 
   const unsigned sm = sm_id();
   int band;
-  const int lane = claim_lane(sm, sm_band, n_sm_ids, lane_ctr, &s_lane, &band);
+  const int lane = claim_lane(sm, a, &s_lane, &band);
   if (lane < 0) return;
 
+  const T* x = static_cast<const T*>(a.x);
+  const T* w = static_cast<const T*>(a.w);
+  T* out = static_cast<T*>(a.out);
+  const int M = a.M, N = a.N, K = a.K;
   const int tid = threadIdx.x;
   const int tx = tid % (kBlockN / TN);
   const int ty = tid / (kBlockN / TN);
 
-  for (int step = 0; step < tiles_per_lane; ++step) {
-    const int linear = band * 2 * tiles_per_lane + step * 2 + lane;
-    if (linear >= total_tiles) break;
-    const int row0 = (linear / n_tiles_n) * BM;
-    const int col0 = (linear % n_tiles_n) * kBlockN;
+  for (int step = 0; step < a.per_lane; ++step) {
+    const int linear = band * 2 * a.per_lane + step * 2 + lane;
+    if (linear >= a.total_units) break;
+    const Unit u = unit_at(a, linear, BM, kBlockN);
 
     float acc[TM][TN];
 #pragma unroll
@@ -165,185 +330,371 @@ pinned_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-    for (int k0 = 0; k0 < K; k0 += kBlockK) {
-      for (int i = tid; i < BM * kBlockK; i += kThreads) {
-        const int r = i / kBlockK, c = i % kBlockK;
-        const int gr = row0 + r, gc = k0 + c;
-        As[c][r] = (gr < M && gc < K) ? to_f(x[static_cast<size_t>(gr) * K + gc]) : 0.f;
+    // the next K step's tiles are loaded into registers during the products
+    float ra[kLoadsA], rb[kLoadsB];
+    auto fetch = [&](int k0) {
+#pragma unroll
+      for (int t = 0; t < kLoadsA; ++t) {
+        const int i = tid + t * kThreads;
+        const int gr = u.row0 + i / kBlockK, gc = k0 + i % kBlockK;
+        ra[t] = (gr < M && gc < u.k_end) ? to_f(x[static_cast<size_t>(gr) * K + gc]) : 0.f;
       }
-      for (int i = tid; i < kBlockK * kBlockN; i += kThreads) {
-        const int r = i / kBlockN, c = i % kBlockN;
-        const int gr = k0 + r, gc = col0 + c;
-        Bs[r][c] = (gr < K && gc < N) ? to_f(w[static_cast<size_t>(gr) * N + gc]) : 0.f;
+#pragma unroll
+      for (int t = 0; t < kLoadsB; ++t) {
+        const int i = tid + t * kThreads;
+        const int gr = k0 + i / kBlockN, gc = u.col0 + i % kBlockN;
+        rb[t] = (gr < u.k_end && gc < N) ? to_f(w[static_cast<size_t>(gr) * N + gc]) : 0.f;
+      }
+    };
+    fetch(u.k_begin);
+    for (int k0 = u.k_begin; k0 < u.k_end; k0 += kBlockK) {
+      __syncthreads();  // the previous K step (and unit) is no longer read
+#pragma unroll
+      for (int t = 0; t < kLoadsA; ++t) {
+        const int i = tid + t * kThreads;
+        As[i % kBlockK][i / kBlockK] = ra[t];
+      }
+#pragma unroll
+      for (int t = 0; t < kLoadsB; ++t) {
+        const int i = tid + t * kThreads;
+        Bs[i / kBlockN][i % kBlockN] = rb[t];
       }
       __syncthreads();
+      if (k0 + kBlockK < u.k_end) fetch(k0 + kBlockK);
 #pragma unroll
       for (int kk = 0; kk < kBlockK; ++kk) {
-        float a[TM], b[TN];
+        float av[TM], bv[TN];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
+        for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
 #pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
+        for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx * TN + j];
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
       }
-      __syncthreads();
     }
 
+    // the tile (S = 1) or the partial; the last arriver sums the partials
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const int r = row0 + ty * TM + i;
-      if (r >= M) continue;
+      const int r = u.row0 + ty * TM + i;
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        const int c = col0 + tx * TN + j;
-        if (c < N) out[static_cast<size_t>(r) * N + c] = from_f<T>(acc[i][j]);
+        const int c = u.col0 + tx * TN + j;
+        if (r >= M || c >= N) continue;
+        const size_t off = static_cast<size_t>(r) * N + c;
+        if (a.n_slices == 1)
+          out[off] = from_f<T>(acc[i][j]);
+        else
+          a.ws[partial_at(a, u, off)] = acc[i][j];
       }
     }
-    if (tid == 0) {
-      atomicAdd(tiles_done, 1);
-      if (tile_sm != nullptr) {
-        tile_sm[linear] = static_cast<int>(sm);
-        atomicAdd(&tile_hits[linear], 1);
+    if (a.n_slices > 1 && arrive_last(a, u.tile, &s_flag)) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = u.row0 + ty * TM + i;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int c = u.col0 + tx * TN + j;
+          if (r < M && c < N) {
+            const size_t off = static_cast<size_t>(r) * N + c;
+            out[off] = from_f<T>(sum_partials(a, off));
+          }
+        }
       }
     }
+    unit_done(a, linear, sm);
   }
 }
 
-// M <= 4: out[r, c] for a 4 x 16 tile; thread = (k row group, 8-column group).
+// M <= 4: a unit is 4 rows x 512 bytes of each weight row (4 x N where that
+// spans N) over a K slice; thread = (row group, 8 columns).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pinned_gemv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   T* __restrict__ out, int M, int N, int K,
-                   const int* __restrict__ sm_band, int n_sm_ids,
-                   int tiles_per_lane, int n_tiles_n, int total_tiles,
-                   int* lane_ctr, int* tiles_done, int* tile_sm,
-                   int* tile_hits, int vec) {
-  __shared__ float xs[kGemvRows][kGemvChunk];
-  __shared__ float part[kThreads / 32][kGemvRows][kGemvCols];
-  __shared__ int s_lane;
+__global__ void __launch_bounds__(kThreads) pinned_gemv_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int s_lane, s_flag;
+  __shared__ unsigned long long bars[kRing];  // one per ring slot: its stage has landed
 
   const unsigned sm = sm_id();
   int band;
-  const int lane = claim_lane(sm, sm_band, n_sm_ids, lane_ctr, &s_lane, &band);
+  const int lane = claim_lane(sm, a, &s_lane, &band);
   if (lane < 0) return;
 
-  const int tid = threadIdx.x;
-  const int cg = tid % kGemvColGroups;
-  const int kr = tid / kGemvColGroups;
-  const int warp = tid / 32;
+  constexpr int kEB = static_cast<int>(sizeof(T));
+  constexpr int kCols = kGemvRowBytes / kEB;          // columns of a unit
+  constexpr int kOut = kGemvRows * kCols / kThreads;  // a unit's outputs per thread
+  const T* x = static_cast<const T*>(a.x);
+  const T* w = static_cast<const T*>(a.w);
+  T* out = static_cast<T*>(a.out);
+  const int tid = threadIdx.x, warp = tid / 32;
+  const bool slab = a.N <= kCols;  // one unit spans all of N
+  const int ldw = slab ? a.N : kCols;             // columns of a stage
+  const int lds = slab ? a.N : kCols + kRowPad / kEB;  // their stride in shared memory
+  int cgs = 1;  // threads across a row, 8 columns each: a power of two <= 32
+  while (cgs * 8 < ldw) cgs *= 2;
+  const int row_groups = kThreads / cgs;
+  const int kr = tid / cgs, c = (tid % cgs) * 8;  // row group, first column
+  const int R = a.stage_rows;
+  const bool bulk = a.vec_w && a.vec_x;  // bulk copies; else element loads
+  // bf16 row segments go through the tensor cores: warp w owns the unit's
+  // columns [32w, 32w + 32) as two 16-column tiles of m16n8k16 products
+  // (out^T = w^T x^T, x's 4 rows padded to 8); else CUDA-core FMAs
+  const bool tc = std::is_same_v<T, __nv_bfloat16> && bulk && !slab;
+  const int g4 = (tid % 32) / 4, t4 = tid % 4;  // an mma fragment's row and column pair
+  const int spu = a.slice_len / R;       // stages per unit
+  const int first = band * 2 * a.per_lane + lane;  // the lane's units: first + 2 * step
+  const int n_units = first < a.total_units ? min(a.per_lane, (a.total_units - first + 1) / 2) : 0;
+  const int n_stages = n_units * spu;
+  float* part = reinterpret_cast<float*>(smem + kRing * kSlotBytes);
 
-  for (int step = 0; step < tiles_per_lane; ++step) {
-    const int linear = band * 2 * tiles_per_lane + step * 2 + lane;
-    if (linear >= total_tiles) break;
-    const int row0 = (linear / n_tiles_n) * kGemvRows;
-    const int col0 = (linear % n_tiles_n) * kGemvCols;
-    const int c = col0 + cg * 8;
+  // A cursor over the lane's stages: stage g is stage sg of unit `linear`,
+  // K rows [k0, k0 + R) clipped to the slice (none at the end of a ragged
+  // last slice).  Divisions only where a unit starts.
+  struct Cursor {
+    int g, sg, k0, linear;
+    Unit u;
+  };
+  auto open_unit = [&](Cursor& q) {
+    q.sg = 0;
+    q.linear = first + 2 * (q.g / spu);
+    q.u = unit_at(a, q.linear, kGemvRows, kCols);
+    q.k0 = q.u.k_begin;
+  };
+  auto next = [&](Cursor& q) {
+    ++q.g;
+    q.k0 += R;
+    if (++q.sg == spu && q.g < n_stages) open_unit(q);
+  };
 
-    float acc[kGemvRows][8];
-#pragma unroll
-    for (int r = 0; r < kGemvRows; ++r)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += kGemvChunk) {
-      const int kc = min(kGemvChunk, K - k0);
-      __syncthreads();  // the previous chunk (and tile) is no longer read
-      for (int i = tid; i < kGemvRows * kGemvChunk; i += kThreads) {
-        const int r = i / kGemvChunk, kk = i % kGemvChunk;
-        xs[r][kk] = (row0 + r < M && kk < kc)
-                        ? to_f(x[static_cast<size_t>(row0 + r) * K + k0 + kk]) : 0.f;
+  // Issues stage q.g into its slot, then moves q on.  With `bulk`, lanes of
+  // warp 0 issue one bulk copy per weight row segment (a slab: one copy)
+  // and per x row, and lane 0 arrives on the slot's barrier expecting their
+  // bytes (0 for an empty stage); otherwise every thread loads elements.
+  auto issue = [&](Cursor& q) {
+    const int rows = max(0, min(R, q.u.k_end - q.k0));
+    unsigned char* slot = smem + (q.g % kRing) * kSlotBytes;
+    T* ws = reinterpret_cast<T*>(slot);
+    T* xs = reinterpret_cast<T*>(slot + kWsBytes);
+    if (bulk) {
+      if (warp == 0) {
+        const int seg = min(kCols, a.N - q.u.col0) * kEB;  // bytes of a row segment
+        const int w_copies = slab ? (rows > 0) : rows;
+        const int w_bytes = slab ? rows * a.N * kEB : rows * seg;
+        const int m_rows = rows > 0 && !tc ? min(a.M, kGemvRows) : 0;  // tc: x from L1
+        unsigned long long* bar = &bars[q.g % kRing];
+        if (tid == 0) mbar_expect(bar, w_bytes + m_rows * rows * kEB);
+        __syncwarp();
+        for (int i = tid; i < w_copies + m_rows; i += 32) {
+          if (i < w_copies) {
+            const T* src = w + static_cast<size_t>(q.k0 + i) * a.N + q.u.col0;
+            bulk_copy(slab ? ws : ws + i * lds, src, slab ? w_bytes : seg, bar);
+          } else {
+            const int m = i - w_copies;
+            bulk_copy(xs + m * R, x + static_cast<size_t>(m) * a.K + q.k0, rows * kEB, bar);
+          }
+        }
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = kr; kk < kc; kk += kGemvKRows) {
-        const T* wp = w + static_cast<size_t>(k0 + kk) * N + c;
+    } else {
+      for (int i = tid; i < rows * ldw; i += kThreads) {
+        const int r = i / ldw, cc = i % ldw;
+        ws[r * lds + cc] = q.u.col0 + cc < a.N
+                               ? w[static_cast<size_t>(q.k0 + r) * a.N + q.u.col0 + cc]
+                               : from_f<T>(0.f);
+      }
+      for (int i = tid; i < kGemvRows * rows; i += kThreads) {
+        const int m = i / rows, r = i % rows;
+        xs[m * R + r] = m < a.M ? x[static_cast<size_t>(m) * a.K + q.k0 + r] : from_f<T>(0.f);
+      }
+    }
+    next(q);
+  };
+
+  // bulk: x rows past M are never copied, so they are zeroed once here
+  if (bulk) {
+    for (int i = tid; i < kRing * kGemvRows * kMaxStageRows; i += kThreads) {
+      const int slot = i / (kGemvRows * kMaxStageRows), e = i % (kGemvRows * kMaxStageRows);
+      if (e / R >= a.M && e < kGemvRows * R)
+        reinterpret_cast<T*>(smem + slot * kSlotBytes + kWsBytes)[e] = from_f<T>(0.f);
+    }
+    if (tid < kRing) mbar_init(&bars[tid]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (n_stages == 0) return;
+
+  Cursor pq{0}, cq{0};  // producer and consumer
+  open_unit(pq);
+  open_unit(cq);
+  while (pq.g < min(kRing - 1, n_stages)) issue(pq);
+  // output i of the current unit: x row i / ldw, column col0 + i % ldw
+  auto unit_out = [&](int i, size_t& off) {
+    const int m = i / ldw, col = cq.u.col0 + i % ldw;
+    off = static_cast<size_t>(m) * a.N + col;
+    return i < kGemvRows * ldw && m < a.M && col < a.N;
+  };
+  float acc[kGemvRows][8];
+  for (int g = 0; g < n_stages; ++g) {
+    if (pq.g < n_stages) issue(pq);  // stage g + kRing - 1
+    const int rows = min(R, cq.u.k_end - cq.k0);
+    // tc: the stage's x fragments (x rows g4 < M; 8 bytes per 16-row step)
+    // from global memory through L1, in flight while the stage lands
+    unsigned xf[kMaxTcSteps][2] = {};
+    if (tc && g4 < a.M) {
+      const T* xr = x + static_cast<size_t>(g4) * a.K + cq.k0 + 2 * t4;
+#pragma unroll
+      for (int s = 0; s < kMaxTcSteps; ++s) {
+        if (s * 16 < rows) xf[s][0] = __ldg(reinterpret_cast<const unsigned*>(xr + s * 16));
+        if (s * 16 + 16 <= rows) xf[s][1] = __ldg(reinterpret_cast<const unsigned*>(xr + s * 16 + 8));
+      }
+    }
+    if (bulk) mbar_wait(&bars[g % kRing], (g / kRing) & 1);  // stage g has landed
+    __syncthreads();
+
+    if (cq.sg == 0) {
+#pragma unroll
+      for (int m = 0; m < kGemvRows; ++m)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
+    }
+    const unsigned char* slot = smem + (g % kRing) * kSlotBytes;
+    const T* ws = reinterpret_cast<const T*>(slot);
+    const T* xs = reinterpret_cast<const T*>(slot + kWsBytes);
+    if (tc) {
+      // acc[nt][0..3]: columns 32w + 16nt + g4 (+8 for [2], [3]), x rows
+      // 2t4 and 2t4 + 1.  rows is a multiple of 8: a 16-row step is whole
+      // or its upper half is outside the slice (zeroed, as stale shared
+      // memory times zero could be NaN).  x rows past M stay zero.
+#pragma unroll
+      for (int s = 0; s < kMaxTcSteps; ++s) {
+        const int ks = s * 16;
+        if (ks >= rows) break;
+        const bool whole = ks + 16 <= rows;
+        const int l = tid % 32;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          unsigned af[4];
+          ldmatrix_x4_trans(af, ws + (ks + l / 16 * 8 + l % 8) * lds + warp * 32 + nt * 16 +
+                                    (l / 8) % 2 * 8);
+          if (!whole) af[2] = af[3] = 0u;
+          mma_bf16(acc[nt], af, xf[s][0], xf[s][1]);
+        }
+      }
+    } else if (c < ldw) {
+#pragma unroll 4
+      for (int r = kr; r < rows; r += row_groups) {
         float wv[8];
-        if (vec && c + 8 <= N) {
-          load8(wp, wv);
+        if (lds * kEB % 16 == 0) {
+          load8(ws + r * lds + c, wv);
         } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) wv[j] = (c + j < N) ? to_f(wp[j]) : 0.f;
+          for (int j = 0; j < 8; ++j) wv[j] = c + j < ldw ? to_f(ws[r * lds + c + j]) : 0.f;
         }
 #pragma unroll
-        for (int r = 0; r < kGemvRows; ++r) {
-          const float xv = xs[r][kk];
+        for (int m = 0; m < kGemvRows; ++m) {
+          const float xv = to_f(xs[m * R + r]);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(xv, wv[j], acc[r][j]);
+          for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
         }
       }
     }
 
-    // Fixed-order reduction over the 128 row groups: the 16 of a warp by
-    // shuffles (a + b == b + a exactly, so every lane holds the same sum),
-    // then the 8 warps in order.
+    if (cq.sg == spu - 1 && tc) {
+      // each warp holds its columns' sums and writes the tile (S = 1) or
+      // the partial
 #pragma unroll
-    for (int r = 0; r < kGemvRows; ++r)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float v = acc[r][j];
-#pragma unroll
-        for (int off = kGemvColGroups; off < 32; off *= 2)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        acc[r][j] = v;
+      for (int e = 0; e < 8; ++e) {  // [nt][h][mm]
+        const int m = 2 * t4 + e % 2;
+        const int col = cq.u.col0 + warp * 32 + e / 4 * 16 + g4 + e / 2 % 2 * 8;
+        if (m >= a.M || col >= a.N) continue;
+        const size_t off = static_cast<size_t>(m) * a.N + col;
+        const float v = acc[e / 4][e % 4];
+        if (a.n_slices == 1)
+          out[off] = from_f<T>(v);
+        else
+          a.ws[partial_at(a, cq.u, off)] = v;
       }
-    if (tid % 32 < kGemvColGroups) {
+    } else if (cq.sg == spu - 1) {
+      // Fixed-order reduction over the row groups: those of a warp by
+      // shuffles (a + b == b + a exactly, so every lane holds the same
+      // sum), then the 8 warps in order.
+      for (int off = cgs; off < 32; off *= 2) {
 #pragma unroll
-      for (int r = 0; r < kGemvRows; ++r)
+        for (int m = 0; m < kGemvRows; ++m)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) part[warp][r][cg * 8 + j] = acc[r][j];
-    }
-    __syncthreads();
-    if (tid < kGemvRows * kGemvCols) {
-      const int r = tid / kGemvCols, cc = tid % kGemvCols;
-      float sum = 0.f;
+          for (int j = 0; j < 8; ++j) acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], off);
+      }
+      if (tid % 32 < cgs) {
 #pragma unroll
-      for (int p = 0; p < kThreads / 32; ++p) sum += part[p][r][cc];
-      if (row0 + r < M && col0 + cc < N)
-        out[static_cast<size_t>(row0 + r) * N + col0 + cc] = from_f<T>(sum);
-    }
-    if (tid == 0) {
-      atomicAdd(tiles_done, 1);
-      if (tile_sm != nullptr) {
-        tile_sm[linear] = static_cast<int>(sm);
-        atomicAdd(&tile_hits[linear], 1);
+        for (int m = 0; m < kGemvRows; ++m)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) part[(warp * kGemvRows + m) * kCols + c + j] = acc[m][j];
+      }
+      __syncthreads();
+      float sum[kOut];  // outputs i = tid + kThreads * e: row i / ldw, column i % ldw
+#pragma unroll
+      for (int e = 0; e < kOut; ++e) {
+        const int i = tid + kThreads * e;
+        sum[e] = 0.f;
+        if (i < kGemvRows * ldw) {
+#pragma unroll
+          for (int p = 0; p < kThreads / 32; ++p)
+            sum[e] += part[(p * kGemvRows + i / ldw) * kCols + i % ldw];
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kOut; ++e) {  // the tile (S = 1) or the partial
+        size_t off;
+        if (!unit_out(tid + kThreads * e, off)) continue;
+        if (a.n_slices == 1)
+          out[off] = from_f<T>(sum[e]);
+        else
+          a.ws[partial_at(a, cq.u, off)] = sum[e];
       }
     }
+    if (cq.sg == spu - 1) {
+      if (a.n_slices > 1 && arrive_last(a, cq.u.tile, &s_flag)) {  // sums the partials
+#pragma unroll
+        for (int e = 0; e < kOut; ++e) {
+          size_t off;
+          if (unit_out(tid + kThreads * e, off)) out[off] = from_f<T>(sum_partials(a, off));
+        }
+      }
+      unit_done(a, cq.linear, sm);
+    }
+    next(cq);
+    __syncthreads();  // slot g % kRing and `part` are free again
   }
 }
 
 // M > 16, bfloat16: 64 x 64 tiles; 8 warps, each a 16 x 32 strip of four
 // m16n8k16 products per 16-deep K step.
-__global__ void __launch_bounds__(kThreads)
-pinned_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                  __nv_bfloat16* __restrict__ out, int M, int N, int K,
-                  const int* __restrict__ sm_band, int n_sm_ids,
-                  int tiles_per_lane, int n_tiles_n, int total_tiles,
-                  int* lane_ctr, int* tiles_done, int* tile_sm,
-                  int* tile_hits, int vec) {
-  constexpr int BM = 64, BN = 64, BK = 32, LDS = BK + 8;  // +8: conflict-free fragments
-  __shared__ __align__(16) __nv_bfloat16 As[BM][LDS];     // x tile, [m][k]
-  __shared__ __align__(16) __nv_bfloat16 Bs[BN][LDS];     // w tile transposed, [n][k]
-  __shared__ int s_lane;
+__global__ void __launch_bounds__(kThreads) pinned_mma_kernel(const Args a) {
+  constexpr int BM = 64, BN = 64, BK = kBlockK, LDS = BK + 8;  // +8: conflict-free fragments
+  __shared__ __align__(16) __nv_bfloat16 As[BM][LDS];  // x tile, [m][k]
+  __shared__ __align__(16) __nv_bfloat16 Bs[BN][LDS];  // w tile transposed, [n][k]
+  __shared__ int s_lane, s_flag;
 
   const unsigned sm = sm_id();
   int band;
-  const int lane = claim_lane(sm, sm_band, n_sm_ids, lane_ctr, &s_lane, &band);
+  const int lane = claim_lane(sm, a, &s_lane, &band);
   if (lane < 0) return;
 
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  const int M = a.M, N = a.N, K = a.K;
   const int tid = threadIdx.x;
   const int warp = tid / 32, g = (tid % 32) / 4, tig = tid % 4;
   const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
-  const int a_row = tid / 4, a_k = (tid % 4) * 8;   // staging: 8 k of one x row
-  const int b_k = tid % 32, b_n = (tid / 32) * 8;   // staging: 8 n of one w row
+  const int a_row = tid / 4, a_k = (tid % 4) * 8;  // staging: 8 k of one x row
+  const int b_k = tid % 32, b_n = (tid / 32) * 8;  // staging: 8 n of one w row
 
-  for (int step = 0; step < tiles_per_lane; ++step) {
-    const int linear = band * 2 * tiles_per_lane + step * 2 + lane;
-    if (linear >= total_tiles) break;
-    const int row0 = (linear / n_tiles_n) * BM;
-    const int col0 = (linear % n_tiles_n) * BN;
+  for (int step = 0; step < a.per_lane; ++step) {
+    const int linear = band * 2 * a.per_lane + step * 2 + lane;
+    if (linear >= a.total_units) break;
+    const Unit u = unit_at(a, linear, BM, BN);
+    const int ke = u.k_end;
 
     float acc[4][4];
 #pragma unroll
@@ -351,109 +702,118 @@ pinned_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
-    uint4 ra = load_row8(x, row0 + a_row, a_k, M, K, vec);
-    uint4 rb = load_row8(w, b_k, col0 + b_n, K, N, vec);
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      __syncthreads();  // the previous K step (and tile) is no longer read
+    uint4 ra = load_row8(x, u.row0 + a_row, u.k_begin + a_k, M, K, ke, a.vec_x);
+    uint4 rb = load_row8(w, u.k_begin + b_k, u.col0 + b_n, ke, N, N, a.vec_w);
+    for (int k0 = u.k_begin; k0 < ke; k0 += BK) {
+      __syncthreads();  // the previous K step (and unit) is no longer read
       *reinterpret_cast<uint4*>(&As[a_row][a_k]) = ra;
       const __nv_bfloat16* hb = reinterpret_cast<const __nv_bfloat16*>(&rb);
 #pragma unroll
       for (int j = 0; j < 8; ++j) Bs[b_n + j][b_k] = hb[j];
       __syncthreads();
-      if (k0 + BK < K) {  // next K step's tiles, in flight during the products
-        ra = load_row8(x, row0 + a_row, k0 + BK + a_k, M, K, vec);
-        rb = load_row8(w, k0 + BK + b_k, col0 + b_n, K, N, vec);
+      if (k0 + BK < ke) {  // next K step's tiles, in flight during the products
+        ra = load_row8(x, u.row0 + a_row, k0 + BK + a_k, M, K, ke, a.vec_x);
+        rb = load_row8(w, k0 + BK + b_k, u.col0 + b_n, ke, N, N, a.vec_w);
       }
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
-        unsigned a[4];
-        a[0] = *reinterpret_cast<const unsigned*>(&As[wm + g][kk + tig * 2]);
-        a[1] = *reinterpret_cast<const unsigned*>(&As[wm + g + 8][kk + tig * 2]);
-        a[2] = *reinterpret_cast<const unsigned*>(&As[wm + g][kk + 8 + tig * 2]);
-        a[3] = *reinterpret_cast<const unsigned*>(&As[wm + g + 8][kk + 8 + tig * 2]);
+        unsigned af[4];
+        af[0] = *reinterpret_cast<const unsigned*>(&As[wm + g][kk + tig * 2]);
+        af[1] = *reinterpret_cast<const unsigned*>(&As[wm + g + 8][kk + tig * 2]);
+        af[2] = *reinterpret_cast<const unsigned*>(&As[wm + g][kk + 8 + tig * 2]);
+        af[3] = *reinterpret_cast<const unsigned*>(&As[wm + g + 8][kk + 8 + tig * 2]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int n = wn + j * 8 + g;
           const unsigned b0 = *reinterpret_cast<const unsigned*>(&Bs[n][kk + tig * 2]);
           const unsigned b1 = *reinterpret_cast<const unsigned*>(&Bs[n][kk + 8 + tig * 2]);
-          mma_bf16(acc[j], a, b0, b1);
+          mma_bf16(acc[j], af, b0, b1);
         }
       }
     }
 
+    // the tile (S = 1) or the partial; the last arriver sums the partials
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int c = col0 + wn + j * 8 + tig * 2;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + wm + g + 8 * h;
-        if (r >= M) continue;
-        if (c < N) out[static_cast<size_t>(r) * N + c] = __float2bfloat16(acc[j][2 * h]);
-        if (c + 1 < N) out[static_cast<size_t>(r) * N + c + 1] = __float2bfloat16(acc[j][2 * h + 1]);
+      for (int e = 0; e < 4; ++e) {
+        const int r = u.row0 + wm + g + 8 * (e / 2);
+        const int c = u.col0 + wn + j * 8 + tig * 2 + e % 2;
+        if (r >= M || c >= N) continue;
+        const size_t off = static_cast<size_t>(r) * N + c;
+        if (a.n_slices == 1)
+          out[off] = __float2bfloat16(acc[j][e]);
+        else
+          a.ws[partial_at(a, u, off)] = acc[j][e];
       }
     }
-    if (tid == 0) {
-      atomicAdd(tiles_done, 1);
-      if (tile_sm != nullptr) {
-        tile_sm[linear] = static_cast<int>(sm);
-        atomicAdd(&tile_hits[linear], 1);
+    if (a.n_slices > 1 && arrive_last(a, u.tile, &s_flag)) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = u.row0 + wm + g + 8 * (e / 2);
+          const int c = u.col0 + wn + j * 8 + tig * 2 + e % 2;
+          if (r < M && c < N) {
+            const size_t off = static_cast<size_t>(r) * N + c;
+            out[off] = __float2bfloat16(sum_partials(a, off));
+          }
+        }
       }
     }
+    unit_done(a, linear, sm);
   }
 }
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, int* resident, int* n_sms, const void* x, const void* w,
-           void* out, int M, int N, int K, const int* sm_band, int n_sm_ids, int n_bands,
-           int tiles_per_lane, int n_tiles_n, int total_tiles, int* counters,
-           int* tile_sm, int* tile_hits, int vec, cudaStream_t stream) {
+template <typename Kernel>
+int launch(Kernel kernel, int smem, int* resident, int* n_sms, const Args& a, int n_counters,
+           cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (resident[dev] == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident[dev], kernel, kThreads, 0);
+    if (smem > 0) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident[dev], kernel, kThreads, smem);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&n_sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
   if (resident[dev] < 2) return cudaErrorInvalidConfiguration;  // two lanes must fit
-  // counters: a lane counter per band, then the finished-tile count
-  err = cudaMemsetAsync(counters, 0, sizeof(int) * (n_bands + 1), stream);
+  err = cudaMemsetAsync(a.lane_ctr, 0, sizeof(int) * n_counters, stream);
   if (err != cudaSuccess) return err;
   const int grid = 2 * resident[dev] * n_sms[dev];
-  kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out),
-      M, N, K, sm_band, n_sm_ids, tiles_per_lane, n_tiles_n, total_tiles,
-      counters, counters + n_bands, tile_sm, tile_hits, vec);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* x, const void* w, void* out, int M, int N, int K, int block_m,
-             const int* sm_band, int n_sm_ids, int n_bands, int tiles_per_lane,
-             int n_tiles_n, int total_tiles, int* counters, int* tile_sm, int* tile_hits,
-             int vec, cudaStream_t stream) {
+int dispatch(const Args& a, int block_m, int n_counters, cudaStream_t stream) {
   static int resident[3][kMaxDevices] = {};
   static int n_sms[3][kMaxDevices] = {};
   switch (block_m) {
-    case kGemvRows:
-      return launch<T>(pinned_gemv_kernel<T>, resident[0], n_sms[0], x, w, out, M, N, K,
-                       sm_band, n_sm_ids, n_bands, tiles_per_lane, n_tiles_n, total_tiles,
-                       counters, tile_sm, tile_hits, vec, stream);
+    case kGemvRows: {
+      const int cols = kGemvRowBytes / static_cast<int>(sizeof(T));
+      const int ldw = a.N <= cols ? a.N : cols;
+      const int R = a.stage_rows;
+      if (R <= 0 || R > kMaxStageRows || R % 8 || R * ldw * static_cast<int>(sizeof(T)) > kStageBytes ||
+          a.slice_len % R)
+        return cudaErrorInvalidValue;
+      return launch(pinned_gemv_kernel<T>, kGemvSmem, resident[0], n_sms[0], a, n_counters,
+                    stream);
+    }
     case 16:
-      return launch<T>(pinned_matmul_kernel<T, 16, 1, 4>, resident[1], n_sms[1], x, w, out,
-                       M, N, K, sm_band, n_sm_ids, n_bands, tiles_per_lane, n_tiles_n,
-                       total_tiles, counters, tile_sm, tile_hits, vec, stream);
+      return launch(pinned_matmul_kernel<T, 16, 1, 4>, 0, resident[1], n_sms[1], a,
+                    n_counters, stream);
     case 64:
       if constexpr (std::is_same_v<T, __nv_bfloat16>)
-        return launch<T>(pinned_mma_kernel, resident[2], n_sms[2], x, w, out, M, N, K,
-                         sm_band, n_sm_ids, n_bands, tiles_per_lane, n_tiles_n,
-                         total_tiles, counters, tile_sm, tile_hits, vec, stream);
+        return launch(pinned_mma_kernel, 0, resident[2], n_sms[2], a, n_counters, stream);
       else
-        return launch<T>(pinned_matmul_kernel<T, 64, 4, 4>, resident[2], n_sms[2], x, w,
-                         out, M, N, K, sm_band, n_sm_ids, n_bands, tiles_per_lane,
-                         n_tiles_n, total_tiles, counters, tile_sm, tile_hits, vec, stream);
+        return launch(pinned_matmul_kernel<T, 64, 4, 4>, 0, resident[2], n_sms[2], a,
+                      n_counters, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -480,22 +840,30 @@ int sm_probe(int* seen, int cap, int* n_ids, int n_blocks, void* stream) {
 }
 
 // block_m is 4 (M <= 4, decode), 16 (M <= 16) or 64; dtype is 0 for
-// float32, 1 for bfloat16.  counters holds n_bands + 1 ints (zeroed here);
-// tile_sm / tile_hits may be null (untraced launch).  vec: the rows of x
-// and w are 16-byte aligned (K % 8 == 0, N % 8 == 0, aligned bases).
-int pinned_matmul(const void* x, const void* w, void* out, int M, int N, int K,
-                  int dtype, int block_m, const int* sm_band, int n_sm_ids, int n_bands,
-                  int tiles_per_lane, int n_tiles_n, int total_tiles, int* counters,
-                  int* tile_sm, int* tile_hits, int vec, void* stream) {
-  if (dtype == 0)
-    return dispatch<float>(x, w, out, M, N, K, block_m, sm_band, n_sm_ids, n_bands,
-                           tiles_per_lane, n_tiles_n, total_tiles, counters, tile_sm,
-                           tile_hits, vec, static_cast<cudaStream_t>(stream));
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(x, w, out, M, N, K, block_m, sm_band, n_sm_ids, n_bands,
-                                   tiles_per_lane, n_tiles_n, total_tiles, counters,
-                                   tile_sm, tile_hits, vec,
-                                   static_cast<cudaStream_t>(stream));
+// float32, 1 for bfloat16.  The plan (persistent_matmul.py::tile_grid):
+// tiles output tiles, n_tiles_n of them across N, n_slices K slices of
+// slice_len, k_step the decode variant's rows per stage.  counters holds
+// n_bands lane counters, the finished-unit count and, when n_slices > 1,
+// one arrival count per tile (all zeroed here); ws is the float32
+// [n_slices, M, N] workspace when n_slices > 1.  unit_sm / unit_hits may be
+// null (untraced launch).  vec_x: x's rows are 16-byte aligned (K % 8 == 0,
+// aligned base); vec_w: w's rows are (N % 8 == 0), or, for a decode launch
+// with N <= 64, w's base is.
+int pinned_matmul(const void* x, const void* w, void* out, int M, int N, int K, int dtype,
+                  int block_m, const int* sm_band, int n_sm_ids, int n_bands, int per_lane,
+                  int n_tiles_n, int tiles, int n_slices, int slice_len, int k_step,
+                  int* counters, float* ws, int* unit_sm, int* unit_hits, int vec_x,
+                  int vec_w, void* stream) {
+  if (n_slices < 1 || slice_len < 1 || (n_slices > 1 && ws == nullptr) ||
+      (block_m != kGemvRows && slice_len % kBlockK))
+    return cudaErrorInvalidValue;
+  Args a{x, w, out, M, N, K, sm_band, n_sm_ids, per_lane, n_tiles_n, n_slices, slice_len,
+         tiles * n_slices, k_step, counters, counters + n_bands, counters + n_bands + 1, ws,
+         unit_sm, unit_hits, vec_x, vec_w};
+  const int n_counters = n_bands + 1 + (n_slices > 1 ? tiles : 0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float>(a, block_m, n_counters, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(a, block_m, n_counters, s);
   return cudaErrorInvalidValue;
 }
 

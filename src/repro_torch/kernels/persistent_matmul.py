@@ -5,7 +5,14 @@ Replaces the Pallas TPU kernel ``repro/kernels/persistent_matmul.py``
 ``csrc/persistent_matmul.cu``: persistent CTAs read ``%smid`` and return
 unless their SM is one of the task's ``n_bands`` SMs; on each allocated SM
 two CTAs claim lanes 0 and 1 (the self-interleaved halves) and walk
-``tile_of``'s map.  See the source for what bounds it and why.
+``tile_of``'s map over the launch's work units.  See the source for what
+bounds each variant and why.
+
+A work unit is (row tile, col tile, K slice).  Where the output tiles are
+too few to fill the card, K is split into slices (``split_plan``, a
+function of the shape alone, so results stay bit-identical for every band
+count); each unit writes a float32 partial to a workspace, and the last
+unit of a tile to arrive sums the partials in slice order.
 
 The allocated SMs are the first ``n_bands`` SM ids the card reports, found
 once per device by a probe kernel (SM ids need not be contiguous).
@@ -21,27 +28,103 @@ import torch
 
 from . import _build
 
-__all__ = ["TileTrace", "tile_shape", "tile_grid", "tile_of",
-           "sm_ids", "persistent_matmul", "persistent_matmul_traced"]
+__all__ = ["TileTrace", "Grid", "tile_shape", "stage_rows", "split_plan", "tile_grid",
+           "unit_of", "tile_of", "sm_ids", "persistent_matmul", "persistent_matmul_traced"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+# A whole H100 is 132 SMs of two lanes.  A constant: the split plan may
+# depend on the shape alone, never on the card or on n_bands, or results
+# would differ between band counts.
+FILL_LANES = 2 * 132
+BLOCK_K = 32          # K step of the tiled variants
+GEMV_ROW_BYTES = 512   # a decode unit's segment of each weight row
+STAGE_BYTES = 16384   # weights per stage of the decode variant's ring
+MAX_STAGE_ROWS = 128  # K rows per stage, at most (the x stage holds 4 x 128)
 
-def tile_shape(m: int) -> tuple[int, int]:
-    """(rows, cols) of an output tile: the kernel's decode variant takes
-    4 x 16 tiles for M <= 4; the tiled variant 16 x 64 or 64 x 64."""
+
+def tile_shape(m: int, itemsize: int) -> tuple[int, int]:
+    """(rows, cols) of an output tile: the decode variant takes 4 rows and
+    512 bytes of each weight row (256 bf16 or 128 float32 columns) for M <= 4;
+    the tiled variant 16 x 64 or 64 x 64."""
     if m <= 4:
-        return 4, 16
+        return 4, GEMV_ROW_BYTES // itemsize
     return (16, 64) if m <= 16 else (64, 64)
 
 
-def tile_grid(m: int, n: int, n_bands: int) -> tuple[int, int, int, int]:
-    """(block_m, column tiles, total tiles, tiles per lane) for one launch."""
-    bm, bn = tile_shape(m)
+def stage_rows(n: int, itemsize: int) -> int:
+    """K rows per stage of the decode variant: 16 KB of weights.  Where one
+    unit spans all of N (rows of 512 bytes or less) a stage is one
+    contiguous slab of the weights, stage_rows * N elements; else 512 bytes
+    of each row."""
+    if n * itemsize <= GEMV_ROW_BYTES:
+        return min(MAX_STAGE_ROWS, STAGE_BYTES // (n * itemsize) // 8 * 8)
+    return STAGE_BYTES // GEMV_ROW_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """One launch's work units.  The linear unit index is
+    tile * n_slices + slice (``unit_of``); lanes walk it by ``tile_of``'s
+    map, per_lane units each."""
+    block_m: int
+    block_n: int
+    n_tiles_n: int
+    tiles: int
+    n_slices: int
+    slice_len: int   # a multiple of k_step; the last slice is ragged
+    k_step: int      # the variant's K step: a decode stage, or BLOCK_K
+    per_lane: int
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.n_slices
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(m: int, k: int, n: int, itemsize: int) -> tuple[int, int, int]:
+    """(n_slices, slice_len, k_step) for an [m, k] @ [k, n] product.
+
+    A function of the shape and type alone.  Where the (row, col) tiles
+    fill the card's FILL_LANES lanes, or for the 4 < M <= 16 variant, K is
+    not split.  Otherwise the slice length (a multiple of the K step) is
+    the one that minimises a lane's time, estimated as units per lane
+    times (slice length + a fixed cost per unit): more slices fill more
+    lanes, and each unit costs a reduction."""
+    bm, bn = tile_shape(m, itemsize)
+    tiles = -(-m // bm) * -(-n // bn)
+    if bm == 4:
+        step = stage_rows(n, itemsize)
+        unit_rows = step  # a unit's end costs about one stage
+    else:
+        step, unit_rows = BLOCK_K, 4 * BLOCK_K
+    steps = max(1, -(-k // step))
+    if tiles >= FILL_LANES or bm == 16:
+        return 1, steps * step, step
+    best = None
+    for q in range(steps, 0, -1):  # slice length in steps, longest first
+        slices = -(-steps // q)
+        cost = -(-tiles * slices // FILL_LANES) * (q * step + unit_rows)
+        if best is None or cost < best[0]:
+            best = (cost, slices, q * step)
+    return best[1], best[2], step
+
+
+def tile_grid(m: int, k: int, n: int, dtype: torch.dtype, n_bands: int) -> Grid:
+    """The work units of one [m, k] @ [k, n] launch on ``n_bands`` bands."""
+    bm, bn = tile_shape(m, dtype.itemsize)
     n_tiles_n = -(-n // bn)
-    total = -(-m // bm) * n_tiles_n
-    return bm, n_tiles_n, total, -(-total // (2 * n_bands))
+    tiles = -(-m // bm) * n_tiles_n
+    n_slices, slice_len, step = split_plan(m, k, n, dtype.itemsize)
+    per_lane = -(-tiles * n_slices // (2 * n_bands))
+    return Grid(bm, bn, n_tiles_n, tiles, n_slices, slice_len, step, per_lane)
+
+
+def unit_of(linear: int, n_tiles_n: int, n_slices: int) -> tuple[int, int, int]:
+    """(row tile, col tile, K slice) of the linear unit index ``linear``."""
+    tile, k_slice = divmod(linear, n_slices)
+    return tile // n_tiles_n, tile % n_tiles_n, k_slice
 
 
 def tile_of(band: int, lane: int, step: int, tiles_per_lane: int,
@@ -50,17 +133,19 @@ def tile_of(band: int, lane: int, step: int, tiles_per_lane: int,
 
     Band b owns the contiguous tile range [b*2T, (b+1)*2T); its two lanes
     interleave that range round-robin (Alg. 1's two halves).  Tiles at or
-    past the end are masked by the kernel."""
+    past the end are masked by the kernel.  The kernel walks its linear
+    unit index by this map; with K split, ``unit_of`` names the unit."""
     linear = band * (2 * tiles_per_lane) + step * 2 + lane
     return linear // n_tiles_n, linear % n_tiles_n
 
 
 @dataclasses.dataclass(frozen=True)
 class TileTrace:
-    """What a traced launch saw: for each tile the SM that computed it and
-    how many times it was computed, plus the kernel's finished-tile count."""
-    tile_sm: torch.Tensor     # [tiles] int32, -1 if never computed
-    tile_hits: torch.Tensor   # [tiles] int32
+    """What a traced launch saw: for each work unit the SM that computed it
+    and how many times it was computed, plus the kernel's finished-unit
+    count."""
+    tile_sm: torch.Tensor     # [units] int32, -1 if never computed
+    tile_hits: torch.Tensor   # [units] int32
     tiles_done: int
     allowed_sms: tuple[int, ...]
 
@@ -72,8 +157,8 @@ _BAND_TABLES: dict[tuple[int, int], torch.Tensor] = {}
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.library("persistent_matmul")
-    lib.pinned_matmul.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
-                                  _I, _I, _I, _P, _P, _P, _I, _P]
+    lib.pinned_matmul.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _P, _P, _P, _P, _I, _I, _P]
     lib.pinned_matmul.restype = _I
     lib.sm_probe.argtypes = [_P, _I, _P, _I, _P]
     lib.sm_probe.restype = _I
@@ -135,24 +220,32 @@ def _launch(x: torch.Tensor, w: torch.Tensor, n_bands: Optional[int],
     n_bands = len(ids) if n_bands is None else n_bands
     if not 1 <= n_bands <= len(ids):
         raise ValueError(f"n_bands={n_bands} outside 1..{len(ids)} SMs")
-    bm, n_tiles_n, total, per_lane = tile_grid(m, n, n_bands)
+    g = tile_grid(m, k, n, x.dtype, n_bands)
     table = _band_table(dev, n_bands)
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
-    counters = torch.empty(n_bands + 1, dtype=torch.int32, device=dev)  # lanes, tiles done
+    split = g.n_slices > 1
+    # lane counters, the finished-unit count, then one arrival count per tile
+    counters = torch.empty(n_bands + 1 + (g.tiles if split else 0), dtype=torch.int32,
+                           device=dev)
+    ws = torch.empty((g.n_slices, m, n), dtype=torch.float32, device=dev) if split else None
     tile_sm = tile_hits = None
     if traced:
-        tile_sm = torch.full((total,), -1, dtype=torch.int32, device=dev)
-        tile_hits = torch.zeros(total, dtype=torch.int32, device=dev)
+        tile_sm = torch.full((g.units,), -1, dtype=torch.int32, device=dev)
+        tile_hits = torch.zeros(g.units, dtype=torch.int32, device=dev)
+    # 16-byte aligned rows: x's when K % 8 == 0; w's when N % 8 == 0, or, where
+    # one decode unit spans N, every slab of w when K % 8 == 0
+    vec_x = k % 8 == 0 and x.data_ptr() % 16 == 0
+    vec_w = (n % 8 == 0 or (g.block_m == 4 and n <= g.block_n and k % 8 == 0)) \
+        and w.data_ptr() % 16 == 0
     with torch.cuda.device(dev):
         err = _lib().pinned_matmul(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, _DTYPES[x.dtype], bm,
-            table.data_ptr(), table.numel(), n_bands, per_lane, n_tiles_n, total,
-            counters.data_ptr(),
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, _DTYPES[x.dtype], g.block_m,
+            table.data_ptr(), table.numel(), n_bands, g.per_lane, g.n_tiles_n, g.tiles,
+            g.n_slices, g.slice_len, g.k_step, counters.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             None if tile_sm is None else tile_sm.data_ptr(),
             None if tile_hits is None else tile_hits.data_ptr(),
-            int(n % 8 == 0 and k % 8 == 0 and x.data_ptr() % 16 == 0
-                and w.data_ptr() % 16 == 0),
-            torch.cuda.current_stream().cuda_stream,
+            int(vec_x), int(vec_w), torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"persistent_matmul launch failed: CUDA error {err}")
@@ -177,5 +270,5 @@ persistent_matmul.launches = 0
 def persistent_matmul_traced(x: torch.Tensor, w: torch.Tensor,
                              n_bands: Optional[int] = None):
     """As :func:`persistent_matmul`, also returning a :class:`TileTrace`
-    (synchronises to read the finished-tile count)."""
+    over work units (synchronises to read the finished-unit count)."""
     return _launch(x, w, n_bands, traced=True)

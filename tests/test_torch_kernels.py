@@ -22,9 +22,24 @@ from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.persistent_matmul import (
     persistent_matmul,
     persistent_matmul_traced,
+    stage_rows,
     tile_grid,
     tile_of,
+    unit_of,
 )
+
+_BF16, _F32 = torch.bfloat16, torch.float32
+# (M, K, N, dtype) of the split launches on the two main paths: decode
+# (M = 4) for qwen3-0.6b and jamba-v0.1-52b, jamba's x_proj and router
+_PATH_SHAPES = [(4, 1024, 1024, _BF16), (4, 1024, 3072, _BF16), (4, 3072, 1024, _BF16),
+                (4, 4096, 4096, _BF16), (4, 4096, 14336, _BF16), (4, 14336, 4096, _BF16),
+                (4, 8192, 33, _BF16), (4, 4096, 16, _F32), (512, 8192, 33, _BF16),
+                (1024, 4096, 16, _F32)]
+# wide bf16 prefill tiles, which fill the card unsplit
+_WIDE_SHAPES = [(1024, 1024, 2048, _BF16), (1024, 4096, 14336, _BF16), (1024, 14336, 4096, _BF16)]
+# K not a multiple of the slice; N narrow, odd, or past one decode unit
+_RAGGED_SHAPES = [(3, 1000, 33, _BF16), (4, 200, 130, _F32), (100, 1000, 16, _F32),
+                  (512, 1000, 33, _BF16), (4, 1000, 600, _BF16)]
 
 
 def _rand(seed, shape):
@@ -99,22 +114,66 @@ class TestTileMap:
                     want = tuple(int(i) for i in captured["map"](b, lane, step, 0))
                     assert tile_of(b, lane, step, per_lane, n_tiles_n) == want
 
-    @pytest.mark.parametrize("bands", [1, 2, 4, 8])
-    @pytest.mark.parametrize("m,n", [(4, 1024), (4, 3072), (1024, 2048), (100, 130)])
-    def test_every_tile_once_inside_its_band(self, m, n, bands):
-        _, n_tiles_n, total, per_lane = tile_grid(m, n, bands)
+    @staticmethod
+    def _units_by_band(m, k, n, dtype, bands):
+        """Every (row tile, col tile, K slice) the lanes walk, with its band,
+        checked to lie inside the band's contiguous range."""
+        g = tile_grid(m, k, n, dtype, bands)
         seen = {}
         for b in range(bands):
             for lane in range(2):
-                for step in range(per_lane):
-                    linear = b * 2 * per_lane + step * 2 + lane
-                    if linear >= total:
+                for step in range(g.per_lane):
+                    linear = b * 2 * g.per_lane + step * 2 + lane
+                    if linear >= g.units:
                         continue  # masked by the kernel
-                    tile = tile_of(b, lane, step, per_lane, n_tiles_n)
-                    assert tile not in seen
-                    seen[tile] = b
-                    assert b * 2 * per_lane <= linear < (b + 1) * 2 * per_lane
-        assert len(seen) == total
+                    assert tile_of(b, lane, step, g.per_lane, g.n_tiles_n) == \
+                        (linear // g.n_tiles_n, linear % g.n_tiles_n)
+                    unit = unit_of(linear, g.n_tiles_n, g.n_slices)
+                    assert unit not in seen
+                    seen[unit] = b
+                    assert b * 2 * g.per_lane <= linear < (b + 1) * 2 * g.per_lane
+        rows, cols = -(-m // g.block_m), g.n_tiles_n
+        assert set(seen) == {(r, c, s) for r in range(rows) for c in range(cols)
+                             for s in range(g.n_slices)}
+        return g
+
+    @pytest.mark.parametrize("bands", [1, 2, 4, 8])
+    @pytest.mark.parametrize("m,n", [(4, 1024), (4, 3072), (1024, 2048), (100, 130)])
+    def test_every_tile_once_inside_its_band(self, m, n, bands):
+        """Every work unit exactly once, inside its band's range (K = 1000
+        is split wherever the tiles are few)."""
+        self._units_by_band(m, 1000, n, torch.bfloat16, bands)
+
+    @pytest.mark.parametrize("bands", [1, 2, 4, 8])
+    @pytest.mark.parametrize("m,k,n,dtype", _PATH_SHAPES)
+    def test_every_unit_once_at_the_path_shapes(self, m, k, n, dtype, bands):
+        g = self._units_by_band(m, k, n, dtype, bands)
+        assert g.n_slices > 1  # these shapes have too few tiles to fill the card
+
+    @pytest.mark.parametrize("m,k,n,dtype", _PATH_SHAPES + _WIDE_SHAPES + _RAGGED_SHAPES)
+    def test_slice_plan_depends_on_the_shape_alone(self, m, k, n, dtype):
+        """The same slices for every band count; they cover [0, K) exactly in
+        multiples of the K step, the last one ragged; no split where the
+        tiles fill the card's 2 x 132 lanes."""
+        plans = {(g.n_slices, g.slice_len, g.k_step, g.tiles)
+                 for g in (tile_grid(m, k, n, dtype, b) for b in (1, 2, 8, 132))}
+        assert len(plans) == 1
+        n_slices, slice_len, k_step, tiles = plans.pop()
+        assert slice_len % k_step == 0
+        assert (n_slices - 1) * slice_len < k <= n_slices * slice_len
+        if tiles >= 2 * 132:
+            assert n_slices == 1
+        if (m, k, n, dtype) in _WIDE_SHAPES:
+            assert n_slices == 1  # the wide prefill tiles run unsplit
+
+    def test_stage_rows_keep_slabs_aligned(self):
+        """A decode stage is 16 KB at most and a multiple of 8 rows, so every
+        slab of w (rows x N) starts on a 16-byte boundary whatever N is."""
+        for itemsize in (2, 4):
+            for n in (1, 16, 33, 100, 256, 257, 4096):
+                rows = stage_rows(n, itemsize)
+                assert rows % 8 == 0 and 8 <= rows <= 128
+                assert rows * min(n, 512 // itemsize) * itemsize <= 16384
 
 
 class TestFlashParity:
@@ -256,6 +315,30 @@ class TestOnCard:
             out, trace = persistent_matmul_traced(x, w, bands)
             assert trace.tiles_done == trace.tile_hits.numel()
             assert bool((trace.tile_hits == 1).all())
+            outs.append(out)
+        assert all(torch.equal(o, outs[0]) for o in outs)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(outs[0].float(), ref.matmul_ref(x, w).float(),
+                                   rtol=tol, atol=tol * 8)
+
+    @pytest.mark.parametrize("m,k,n,dtype", _PATH_SHAPES[6:] + _RAGGED_SHAPES + [
+        (4, 4096, 4096, _BF16)])
+    def test_split_units_once_and_bit_identical(self, m, k, n, dtype):
+        """Split launches: every unit once on its band's SMs at n_bands in
+        {1, 2, 8}, bit-identical outputs, the existing case's tolerance."""
+        self._need_card()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(dtype)
+        outs = []
+        for bands in (1, 2, 8):
+            out, trace = persistent_matmul_traced(x, w, bands)
+            g = tile_grid(m, k, n, dtype, bands)
+            assert g.n_slices > 1
+            assert trace.tiles_done == g.units == trace.tile_hits.numel()
+            assert bool((trace.tile_hits == 1).all())
+            owner = [trace.allowed_sms[u // (2 * g.per_lane)] for u in range(g.units)]
+            assert trace.tile_sm.cpu().tolist() == owner
             outs.append(out)
         assert all(torch.equal(o, outs[0]) for o in outs)
         tol = 1e-4 if dtype == torch.float32 else 2e-2
