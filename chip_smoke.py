@@ -12,7 +12,9 @@ Runs from the repository root and imports only ``repro_torch`` (from
    a. kernels against their plain PyTorch versions on the card, at the
       path's shapes: persistent_matmul (bf16 and f32, n_bands in {1, 8,
       all SMs}: work-unit coverage, the allocated-SM check, bit-identity
-      across band counts; ragged K, N and M) and flash_attention (prefill
+      across band counts; ragged K, N and M, for the wgmma variant also
+      from a misaligned operand; each shape's variant named) and
+      flash_attention (prefill
       shape, sliding window, ragged S); each kernel's device time
       (CUDA-graph replay) beside its plain version, a library yardstick
       and its bound (and GB/s for the M <= 4 matmul), and its time when
@@ -24,15 +26,16 @@ Runs from the repository root and imports only ``repro_torch`` (from
       versions, both held to a float32 run of the plain versions (one block
       at a time), and each block's own error on either path, reported;
    c. profile: device time by kernel and the device's idle share over one
-      prefill and eight decode steps (torch.profiler);
+      prefill and eight decode steps (torch.profiler), with each pinned
+      matmul variant's launches in a prefill held to the shapes' choice;
    d. RT bridge: the measured decode step as an RTGPU task;
 4. jamba-v0.1-52b path, at full width cut to one period of 8 layers (the
    32 layers' 102.9 GB of bf16 weights exceed the card's 80 GB), after
    the qwen engine is freed: the same four phases, with selective_scan
    held to its plain version at the prefill chunk's shape (h0 none, zero
    and random; c in f32 and bf16) and at ragged shapes, and the pinned
-   matmul checked (at every band count where K is split) and timed at
-   jamba's projection shapes.
+   matmul checked (at every band count where K is split or the wgmma
+   variant runs) and timed at jamba's projection shapes.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's launches and times
 summed over both paths) and, last, ``{"ok": true, ...}``.  Details go to
@@ -46,6 +49,7 @@ import copy
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -213,6 +217,20 @@ def matmul_calls(cfg) -> dict:
     return dict(calls)
 
 
+def prefill_matmul_kernels(cfg) -> dict:
+    """The pinned matmul's launches in one prefill, by the CUDA kernel each
+    shape takes."""
+    import torch
+    from repro_torch.kernels.persistent_matmul import kernel_name
+
+    chunk, _ = scan_chunks()
+    out = collections.Counter()
+    for (m, k, n, dt), calls in matmul_calls(cfg).items():
+        if m in (BATCH * PROMPT, BATCH * chunk):
+            out[kernel_name(m, k, n, getattr(torch, dt))] += calls // ROUNDS
+    return dict(out)
+
+
 def expected_launches(cfg) -> dict:
     n_attn = sum(spec.mixer == "attn" for spec in layers(cfg))
     n_mamba = sum(spec.mixer == "mamba" for spec in layers(cfg))
@@ -246,19 +264,24 @@ def phase_build() -> dict:
     seconds = time.perf_counter() - t0
     print(f"[build] {sorted(logs)} in {seconds:.1f} s")
     for name, log in logs.items():
+        kernel = "?"  # ptxas names the function, then gives its registers and spills
         for line in log.splitlines():
+            found = re.search(r"Function properties for \S*?([a-z][a-z_]*_kernel)", line)
+            if found:
+                kernel = found.group(1)
             if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+                print(f"[build] {name} {kernel}: {line.strip()}")
     return {"seconds": seconds, "nvcc": logs}
 
 
 def check_matmul(m, k, n, dtype, gen, band_counts) -> float:
     """The kernel against matmul_ref: every work unit computed once, on an
     SM of its band, at each band count; bit-identical outputs across band
-    counts and between traced and untraced launches."""
+    counts and between traced and untraced launches, and for the wgmma
+    variant from operands at a misaligned base (copied, same variant)."""
     import torch
     from repro_torch.kernels.persistent_matmul import (
-        persistent_matmul, persistent_matmul_traced, tile_grid)
+        kernel_name, persistent_matmul, persistent_matmul_traced, tile_grid)
     from repro_torch.kernels.ref import matmul_ref
 
     x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
@@ -283,6 +306,13 @@ def check_matmul(m, k, n, dtype, gen, band_counts) -> float:
               f"matmul {m}x{k}x{n} {dtype}: n_bands={n_bands} differs from "
               f"n_bands={band_counts[0]}")
     check(torch.equal(persistent_matmul(x, w), outs[0]), "untraced launch differs")
+    if kernel_name(m, k, n, dtype) == "pinned_wgmma_kernel":
+        xs, ws = (torch.empty(t.numel() + 1, dtype=dtype, device="cuda")[1:].view(t.shape)
+                  for t in (x, w))
+        xs.copy_(x)
+        ws.copy_(w)
+        check(torch.equal(persistent_matmul(xs, ws), outs[0]),
+              f"matmul {m}x{k}x{n}: misaligned operands give another result")
     err = (outs[0].float() - want.float()).abs().max().item()
     if dtype == torch.float32:
         ok = err <= MATMUL_F32_TOL * max(1.0, want.abs().max().item())
@@ -306,6 +336,11 @@ def split(m, k, n, dtype) -> bool:
 RAGGED_MATMUL = [(m, k, n) for m in (3, 4, 100, 512) for k in (200, 1000)
                  for n in (16, 33, 130)] + [(m, 200, n) for m in (3, 16, 100) for n in (130, 136)] \
     + [(m, 1000, 600) for m in (3, 4)]  # a decode unit cut short at N
+# Ragged shapes of the wgmma variant (bf16, M > 16, K and N multiples of 8):
+# M, N and K off the 128 x 128 x 64 tile, one tile and a partial box, split
+# and unsplit.
+RAGGED_WGMMA = [(100, 200, 136), (1000, 1000, 1032), (17, 64, 8), (300, 4104, 264),
+                (130, 1000, 200), (1024, 1000, 3000)]
 
 
 def check_flash(b, s, h, hkv, hd, dtype, window, gen) -> float:
@@ -365,7 +400,7 @@ def matmul_rows(cfg, calls: dict, gen) -> list[dict]:
     """Device time of each (M, K, N, dtype) the path launches, beside the
     plain version, torch.matmul and the bound."""
     import torch
-    from repro_torch.kernels.persistent_matmul import persistent_matmul
+    from repro_torch.kernels.persistent_matmul import kernel_name, persistent_matmul
     from repro_torch.kernels.ref import matmul_ref
 
     rows = []
@@ -380,6 +415,7 @@ def matmul_rows(cfg, calls: dict, gen) -> list[dict]:
         eb = x.element_size()
         rows.append({
             "m": m, "k": k, "n": n, "dtype": dt_name, "calls": n_calls,
+            "kernel": kernel_name(m, k, n, dt),
             "ms": time_ms(cycling(persistent_matmul, args), iters),
             "eager_ms": eager_ms(cycling(persistent_matmul, args)),
             "plain_ms": time_ms(cycling(matmul_ref, args), iters),
@@ -394,7 +430,8 @@ def matmul_rows(cfg, calls: dict, gen) -> list[dict]:
 
     for r in rows:
         print(f"[kernels] {cfg.name} matmul M={r['m']} K={r['k']} N={r['n']} {r['dtype']} "
-              f"x{r['calls']}: {r['ms']:.4f} ms{gb_s(r)} (issued eagerly {r['eager_ms']:.4f}; plain "
+              f"x{r['calls']} on {r['kernel']}: {r['ms']:.4f} ms{gb_s(r)} (issued eagerly "
+              f"{r['eager_ms']:.4f}; plain "
               f"{r['plain_ms']:.4f}, torch.matmul {r['library_ms']:.4f}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']})")
     return rows
@@ -462,6 +499,7 @@ def scan_rows(cfg, calls: int, gen) -> list[dict]:
 
 def phase_kernels_qwen(cfg, n_sms) -> dict:
     import torch
+    from repro_torch.kernels.persistent_matmul import kernel_name
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dt = getattr(torch, cfg.dtype)
@@ -476,6 +514,11 @@ def phase_kernels_qwen(cfg, n_sms) -> dict:
               for dtype in (torch.float32, torch.bfloat16)]
     for m, k, n, dtype in ragged:
         check_matmul(m, k, n, dtype, gen, (1, 8, n_sms))
+    for m, k, n in RAGGED_WGMMA:
+        check(kernel_name(m, k, n, torch.bfloat16) == "pinned_wgmma_kernel",
+              f"{m}x{k}x{n} is not a wgmma shape")
+        check_matmul(m, k, n, torch.bfloat16, gen, (1, 8, n_sms))
+    ragged += RAGGED_WGMMA
     print(f"[kernels] persistent_matmul: {len(mm_err) + len(ragged)} shapes x 3 band counts ok; "
           f"max abs err bf16 {max(v for key, v in mm_err.items() if 'bfloat16' in key[3]):.3g}, "
           f"f32 {max(v for key, v in mm_err.items() if 'float32' in key[3]):.3g}")
@@ -502,6 +545,7 @@ def phase_kernels_qwen(cfg, n_sms) -> dict:
 
 def phase_kernels_jamba(cfg, n_sms) -> dict:
     import torch
+    from repro_torch.kernels.persistent_matmul import kernel_name
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     dt = getattr(torch, cfg.dtype)
@@ -527,10 +571,11 @@ def phase_kernels_jamba(cfg, n_sms) -> dict:
     # persistent_matmul at jamba's projection shapes, all SMs; flash at its head shape
     calls = matmul_calls(cfg)
     mm_err = {}
-    for m, k, n, dt_name in calls:  # all band counts where K is split, else all SMs
+    for m, k, n, dt_name in calls:  # all band counts where K is split or wgmma runs
         dtype = getattr(torch, dt_name)
+        every = split(m, k, n, dtype) or kernel_name(m, k, n, dtype) == "pinned_wgmma_kernel"
         mm_err[(m, k, n, dt_name)] = check_matmul(
-            m, k, n, dtype, gen, (1, 8, n_sms) if split(m, k, n, dtype) else (n_sms,))
+            m, k, n, dtype, gen, (1, 8, n_sms) if every else (n_sms,))
     print(f"[kernels] persistent_matmul at {len(mm_err)} jamba shapes ok; max abs err "
           f"{max(mm_err.values()):.3g}")
     fl_err = check_flash(BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt, None, gen)
@@ -688,10 +733,17 @@ def _profile(fn, steps: int) -> dict:
             rows.append({"name": e.key, "calls": e.count, "device_ms": dev_us / 1e3 / steps})
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
+    pinned = collections.Counter()  # the pinned matmul's variants: launches, ms
+    pinned_ms = collections.Counter()
+    for r in rows:
+        found = re.search(r"(pinned_[a-z]+_kernel)", r["name"])
+        if found:
+            pinned[found.group(1)] += r["calls"]
+            pinned_ms[found.group(1)] += r["device_ms"]
     return {"wall_ms_per_step": wall_ms / steps, "device_ms_per_step": busy,
             "idle_share": (1.0 - busy * steps / wall_ms) if rows else None,
             "device_ops_per_step": sum(r["calls"] for r in rows) / steps,
-            "top": rows[:12]}
+            "pinned_launches": dict(pinned), "pinned_ms": dict(pinned_ms), "top": rows[:12]}
 
 
 def phase_profile(engine, prompt) -> dict:
@@ -702,7 +754,8 @@ def phase_profile(engine, prompt) -> dict:
     with torch.inference_mode():
         tokens = torch.as_tensor(prompt, device="cuda")
         caches = model.init_caches(BATCH, MAX_CONTEXT)
-        out["prefill"] = _profile(lambda: model.prefill(tokens, caches), 1)
+        steps = {"prefill": 1, "decode": 8}
+        out["prefill"] = _profile(lambda: model.prefill(tokens, caches), steps["prefill"])
         logits, caches = model.prefill(tokens, caches)
         tok = logits[:, -1].argmax(-1)[:, None]
         state = {"len": torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")}
@@ -712,7 +765,7 @@ def phase_profile(engine, prompt) -> dict:
             state["len"] = state["len"] + 1
 
         step()
-        out["decode"] = _profile(step, 8)
+        out["decode"] = _profile(step, steps["decode"])
     for phase, r in out.items():
         if r["idle_share"] is None:
             print(f"[profile] {model.cfg.name} {phase}: the profiler saw no device time "
@@ -723,6 +776,14 @@ def phase_profile(engine, prompt) -> dict:
               f"{r['idle_share']:.3f}, {r['device_ops_per_step']:.0f} device ops/step")
         for row in r["top"][:6]:
             print(f"[profile]   {row['device_ms']:.4f} ms  x{row['calls']}  {row['name'][:90]}")
+        for name, calls in sorted(r["pinned_launches"].items()):
+            print(f"[profile]   pinned matmul {name}: x{calls // steps[phase]}/step, "
+                  f"{r['pinned_ms'][name]:.4f} ms/step")
+    if out["prefill"]["idle_share"] is not None:
+        want = prefill_matmul_kernels(model.cfg)
+        check(out["prefill"]["pinned_launches"] == want,
+              f"{model.cfg.name} prefill: pinned matmul launches by kernel "
+              f"{out['prefill']['pinned_launches']}, the shapes give {want}")
     return out
 
 

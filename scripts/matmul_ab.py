@@ -10,7 +10,8 @@ every (M, K, N, dtype) that ``chip_smoke.py`` counts on the two main paths
 kernel of DIR and of this checkout in separate processes, in the order
 base, change, change, base, each with ``chip_smoke.time_ms`` (CUDA-graph
 replay over a ring of weights larger than the L2), beside ``torch.matmul``.
-It prints one line per shape (each version's mean of its two runs) and the
+It prints one line per shape (each version's mean of its two runs, and the
+CUDA kernel that this checkout's variant choice gives the shape) and the
 path totals (ms per launch times launches), and writes every run to FILE
 (by default matmul_ab.json in chip_smoke.py's output directory).  Needs
 one card; imports no JAX.
@@ -105,6 +106,7 @@ def main() -> int:
         vals = [r["rows"][i][key] for r in runs if r["name"] == name]
         return sum(vals) / len(vals)
 
+    from repro_torch.kernels.persistent_matmul import kernel_name
     from repro_torch.roofline import HBM_BW, PEAK_FLOPS, PEAK_FLOPS_F32
 
     totals = {"base": 0.0, "change": 0.0, "library": 0.0, "bound": 0.0}
@@ -115,6 +117,7 @@ def main() -> int:
         peak = PEAK_FLOPS_F32 if dt == "float32" else PEAK_FLOPS
         bound = max(n_bytes / HBM_BW, 2.0 * m * n * k / peak) * 1e3
         row = {"m": m, "k": k, "n": n, "dtype": dt, "calls": calls[(m, k, n, dt)],
+               "kernel": kernel_name(m, k, n, getattr(torch, dt)),
                "base_ms": mean("base", i, "ms"), "change_ms": mean("change", i, "ms"),
                "library_ms": mean("change", i, "library_ms"), "bound_ms": bound,
                "change_gb_s": n_bytes / mean("change", i, "ms") / 1e6}
@@ -122,7 +125,8 @@ def main() -> int:
         for key, col in (("base", "base_ms"), ("change", "change_ms"),
                          ("library", "library_ms"), ("bound", "bound_ms")):
             totals[key] += row["calls"] * row[col]
-        print(f"M={m} K={k} N={n} {dt} x{row['calls']}: base {row['base_ms']:.4f} change "
+        print(f"M={m} K={k} N={n} {dt} x{row['calls']} ({row['kernel']}): base "
+              f"{row['base_ms']:.4f} change "
               f"{row['change_ms']:.4f} ms ({row['change_gb_s']:.0f} GB/s), torch.matmul "
               f"{row['library_ms']:.4f}, bound {bound:.4f}; runs "
               + " ".join(f"{r['name']} {r['rows'][i]['ms']:.4f}" for r in runs))

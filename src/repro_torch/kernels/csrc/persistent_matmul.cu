@@ -53,26 +53,57 @@
 //    What bounds it: the HBM stream where the units fill the card; at
 //    small shapes the launch, the lane claim and the split's fence and
 //    arrival count, a few microseconds in all.
-//  * M > 16 in bfloat16 (prefill): 64 x 64 tiles on the tensor cores,
+//  * M > 16 in bfloat16 with K % 8 == 0 and N % 8 == 0 (every wide prefill
+//    projection): pinned_wgmma_kernel, 128 x 128 tiles, K step 64.  It
+//    replaces the mma.sync tile below for these shapes, which ran at 5-10
+//    times torch.matmul: register-staged loads of one 32-deep step kept the
+//    tensor cores waiting.  What bounds it is tensor-core operations, and
+//    at 128 x 128 the L2 traffic that feeds them (64 FLOP per byte of a
+//    stage).  So: one producer warp keeps a 3-stage shared-memory ring full
+//    with TMA (cp.async.bulk.tensor.2d, 128-byte swizzle; x's [128 x 64]
+//    box and two [64 x 64] boxes of w, each stage 32 KB, a full and an
+//    empty mbarrier per stage, across unit boundaries); one consumer
+//    warpgroup runs wgmma.mma_async m64n128k16 (two per 16-deep step, f32
+//    accumulators, 128 a thread), A = x K-major and B = w's row-major
+//    boxes read MN-major through the descriptor's transpose bit, so w is
+//    never transposed in memory.  One stage's products stay in flight
+//    while the next is issued.  97 KB of shared memory and 160 threads of
+//    at most 200 registers a CTA keep the two lanes of an SM resident, and
+//    while one lane writes its tile the other keeps the tensor cores busy.
+//    TMA zero-fills the ragged edges; the ring needs 16-byte row strides,
+//    hence K % 8 == 0 and N % 8 == 0 (the wrapper copies a misaligned base).
+//  * other M > 16 in bfloat16 (x_proj's N = 33, ragged N): 64 x 64 tiles,
 //    mma.sync m16n8k16 with float32 accumulation; the next K step's tiles
-//    are loaded into registers while the current one is multiplied.  No
-//    TMA or wgmma yet, so it stays well below the bf16 peak.
+//    are loaded into registers while the current one is multiplied.
 //  * otherwise (float32, or 4 < M <= 16): 16 x 64 or 64 x 64 tiles, IEEE
 //    FMAs on the CUDA cores from float32 tiles in shared memory, the next
 //    K step's values loaded into registers during the products.
-// The tiled variants take 16-byte loads of x where K % 8 == 0 and of w
-// where N % 8 == 0, each flag apart.  Each unit's K order is fixed and so
-// is the order of the partials' sum, which makes results bit-identical for
-// every band count.
+// The register-staged variants take 16-byte loads of x where K % 8 == 0
+// and of w where N % 8 == 0, each flag apart.  Each unit's K order is fixed
+// and so is the order of the partials' sum, which makes results
+// bit-identical for every band count.
+#include <cuda.h>  // CUtensorMap; the encoder is found at run time (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
+// wgmma units: 128 x 128 tiles, K step 64 (one 128-byte swizzle row of bf16)
+constexpr int kWgTile = 128;
+constexpr int kWgK = 64;
+constexpr int kWgStages = 3;
+constexpr int kWgConsumers = 128;                 // one warpgroup
+constexpr int kWgThreads = kWgConsumers + 32;     // and one producer warp
+constexpr int kWgABytes = kWgTile * kWgK * 2;     // x's [128 x 64] box, 16 KB
+constexpr int kWgBBox = kWgK * 64 * 2;            // one of w's [64 x 64] boxes, 8 KB
+constexpr int kWgStageBytes = kWgABytes + 2 * kWgBBox;
+constexpr int kWgSmem = kWgStages * kWgStageBytes + 1024;  // + slack to align to 1024
+constexpr int kWgSumRows = 8;  // rows a thread sums at a time (split units)
 constexpr int kBlockK = 32;
 constexpr int kBlockN = 64;
 constexpr int kMaxDevices = 64;
@@ -171,8 +202,12 @@ __device__ __forceinline__ unsigned sm_id_bound() {
   return r;
 }
 
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
 }
 // The one arrival of a phase, expecting `bytes` of bulk copies.
 __device__ __forceinline__ void mbar_expect(unsigned long long* bar, int bytes) {
@@ -203,6 +238,67 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+// The box of `map` at (column c0, row c1) -> shared memory, completing on
+// `bar`; elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_addr(bar)) : "memory");
+}
+
+// A wgmma shared-memory descriptor, 128-byte swizzle: the start address,
+// the leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t wg_desc(unsigned addr, unsigned lbo, unsigned sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of `d` across the wgmma fences
+// and waits, which it cannot see are tied to the registers.
+__device__ __forceinline__ void wg_fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+// d[64 x 128] += A[64 x 16] (K-major) * B[16 x 128] (MN-major: the
+// transpose bit), bf16 in, f32 accumulate; d in the accumulator layout
+// (warp w, lane l: rows 16w + l/4 (+8), columns 8j + 2(l%4) (+1)).
+__device__ __forceinline__ void wgmma_128(float* d, uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // 8 values p[r][c..c+8) of a row-major bf16 matrix with row stride ld, zero
@@ -251,14 +347,26 @@ __device__ __forceinline__ int claim_lane(unsigned sm, const Args& a, int* s_lan
   return *s_lane < 2 ? *s_lane : -1;
 }
 
-// After a split unit's partials are written: true, in every thread, when
-// this CTA is the last of its tile's units to arrive.  Writers fence before
-// the count; the last arriver fences before it reads.  Nothing waits.
+// A barrier over the CTA (kCount = 0), or over its first kCount threads
+// alone (the wgmma kernel's consumers; named barrier 1).
+template <int kCount>
+__device__ __forceinline__ void sync_threads() {
+  if constexpr (kCount == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync 1, %0;\n" :: "n"(kCount) : "memory");
+}
+
+// After a split unit's partials are written: true, in every thread that
+// takes part (sync_threads<kCount>), when this CTA is the last of its
+// tile's units to arrive.  Writers fence before the count; the last arriver
+// fences before it reads.  Nothing waits.
+template <int kCount = 0>
 __device__ __forceinline__ bool arrive_last(const Args& a, int tile, int* s_flag) {
   __threadfence();
-  __syncthreads();
+  sync_threads<kCount>();
   if (threadIdx.x == 0) *s_flag = atomicAdd(&a.arrive[tile], 1) == a.n_slices - 1;
-  __syncthreads();
+  sync_threads<kCount>();
   const bool last = *s_flag != 0;
   if (last) __threadfence();
   return last;
@@ -765,9 +873,162 @@ __global__ void __launch_bounds__(kThreads) pinned_mma_kernel(const Args a) {
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int smem, int* resident, int* n_sms, const Args& a, int n_counters,
-           cudaStream_t stream) {
+// M > 16, bfloat16, K % 8 == 0, N % 8 == 0: 128 x 128 tiles from a TMA-fed
+// ring.  Threads 0-127 are the consumer warpgroup, 128-159 the producer
+// warp (one thread issues).  Both walk the lane's units in the same order;
+// stage g of the walk lives in slot g % kWgStages.
+__global__ void __launch_bounds__(kWgThreads, 2)
+    pinned_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap tmap_x,
+                        const __grid_constant__ CUtensorMap tmap_w) {
+  extern __shared__ unsigned char wg_raw[];
+  __shared__ __align__(8) unsigned long long full[kWgStages], empty[kWgStages];
+  __shared__ int s_lane, s_flag;
+
+  const unsigned sm = sm_id();
+  int band;
+  const int lane = claim_lane(sm, a, &s_lane, &band);
+  if (lane < 0) return;
+
+  // the 128-byte swizzle repeats every 1024 bytes: TMA and wgmma agree on
+  // it where every box starts on a 1024-byte boundary
+  unsigned char* ring = wg_raw + ((1024 - (smem_addr(wg_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);                   // the producer's expect_tx
+      mbar_init(&empty[s], kWgConsumers / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int first = band * 2 * a.per_lane + lane;  // the lane's units: first + 2 * i
+  const int n_units =
+      first < a.total_units ? min(a.per_lane, (a.total_units - first + 1) / 2) : 0;
+
+  if (tid >= kWgConsumers) {  // producer
+    if (tid == kWgConsumers) {
+      int g = 0;
+      for (int i = 0; i < n_units; ++i) {
+        const Unit u = unit_at(a, first + 2 * i, kWgTile, kWgTile);
+        for (int k0 = u.k_begin; k0 < u.k_end; k0 += kWgK, ++g) {
+          const int s = g % kWgStages;
+          if (g >= kWgStages) mbar_wait(&empty[s], (g / kWgStages - 1) & 1);
+          unsigned char* st = ring + s * kWgStageBytes;
+          mbar_expect(&full[s], kWgStageBytes);  // boxes count whole, zero fill included
+          tma_load(st, &tmap_x, k0, u.row0, &full[s]);
+          tma_load(st + kWgABytes, &tmap_w, u.col0, k0, &full[s]);
+          tma_load(st + kWgABytes + kWgBBox, &tmap_w, u.col0 + 64, k0, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  const int warp = tid / 32, l = tid % 32;
+  const unsigned ring_addr = smem_addr(ring);
+  float acc[2][64];  // rows [64h, 64h + 64) of the tile
+  int g = 0;
+  for (int i = 0; i < n_units; ++i) {
+    const int linear = first + 2 * i;
+    const Unit u = unit_at(a, linear, kWgTile, kWgTile);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[h][e] = 0.f;
+      wg_fence_regs(acc[h]);
+    }
+    int held = -1;  // the slot whose products may still be in flight
+    for (int k0 = u.k_begin; k0 < u.k_end; k0 += kWgK, ++g) {
+      const int s = g % kWgStages;
+      mbar_wait(&full[s], (g / kWgStages) & 1);
+      const unsigned xa = ring_addr + s * kWgStageBytes, wa = xa + kWgABytes;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgK / 16; ++kk) {
+        // B: 16 K rows of 128 bytes at 2048 kk; the second 64 columns one
+        // box (8 KB) on; 8-row groups 1024 bytes apart
+        const uint64_t db = wg_desc(wa + kk * 2048, kWgBBox, 1024);
+        // A: 32 bytes of each 128-byte row at 32 kk; 8-row groups 1024 apart
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          wgmma_128(acc[h], wg_desc(xa + h * 64 * 128 + kk * 32, 16, 1024), db);
+      }
+      wg_commit();
+      wg_wait<1>();  // the previous stage's products are done: free its slot
+      if (held >= 0 && l == 0) mbar_arrive(&empty[held]);
+      held = s;
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) wg_fence_regs(acc[h]);
+    if (held >= 0 && l == 0) mbar_arrive(&empty[held]);
+
+    // the tile (S = 1) in bf16 or the float32 partial, from the accumulator
+    // layout; N % 8 == 0, so a column pair is inside N or outside it whole
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = u.row0 + 64 * h + 16 * warp + l / 4 + 8 * half;
+          const int c = u.col0 + 8 * j + 2 * (l % 4);
+          if (r >= a.M || c >= a.N) continue;
+          const size_t off = static_cast<size_t>(r) * a.N + c;
+          const float v0 = acc[h][4 * j + 2 * half], v1 = acc[h][4 * j + 2 * half + 1];
+          if (a.n_slices == 1)
+            *reinterpret_cast<__nv_bfloat162*>(out + off) = __floats2bfloat162_rn(v0, v1);
+          else
+            *reinterpret_cast<float2*>(a.ws + partial_at(a, u, off)) = make_float2(v0, v1);
+        }
+      }
+    }
+    // the last arriver sums the tile's partials in slice order: lane l
+    // takes 4 columns, warp w the rows w, w + 4, ..; 8 rows of two slices
+    // are in flight at a time
+    if (a.n_slices > 1 && arrive_last<kWgConsumers>(a, u.tile, &s_flag)) {
+      const size_t stride = static_cast<size_t>(a.M) * a.N;
+      const int c = u.col0 + 4 * l, r_end = min(a.M, u.row0 + kWgTile);
+      for (int r0 = u.row0 + warp; c < a.N && r0 < r_end; r0 += 4 * kWgSumRows) {
+        float4 sum[kWgSumRows];
+#pragma unroll
+        for (int i = 0; i < kWgSumRows; ++i) sum[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+        for (int sl = 0; sl < a.n_slices; ++sl) {
+          const float* p = a.ws + sl * stride + c;
+#pragma unroll
+          for (int i = 0; i < kWgSumRows; ++i) {
+            const int r = r0 + 4 * i;
+            if (r >= r_end) continue;
+            const float4 v =
+                __ldcg(reinterpret_cast<const float4*>(p + static_cast<size_t>(r) * a.N));
+            sum[i].x += v.x;
+            sum[i].y += v.y;
+            sum[i].z += v.z;
+            sum[i].w += v.w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kWgSumRows; ++i) {
+          const int r = r0 + 4 * i;
+          if (r >= r_end) continue;
+          __nv_bfloat162* o =
+              reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r) * a.N + c);
+          o[0] = __floats2bfloat162_rn(sum[i].x, sum[i].y);
+          o[1] = __floats2bfloat162_rn(sum[i].z, sum[i].w);
+        }
+      }
+    }
+    unit_done(a, linear, sm);
+  }
+}
+
+template <typename Kernel, typename... Maps>
+int launch(Kernel kernel, int threads, int smem, int* resident, int* n_sms, const Args& a,
+           int n_counters, cudaStream_t stream, const Maps&... maps) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -777,7 +1038,7 @@ int launch(Kernel kernel, int smem, int* resident, int* n_sms, const Args& a, in
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return err;
     }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident[dev], kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident[dev], kernel, threads, smem);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&n_sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -786,14 +1047,52 @@ int launch(Kernel kernel, int smem, int* resident, int* n_sms, const Args& a, in
   err = cudaMemsetAsync(a.lane_ctr, 0, sizeof(int) * n_counters, stream);
   if (err != cudaSuccess) return err;
   const int grid = 2 * resident[dev] * n_sms[dev];
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a, maps...);
   return cudaGetLastError();
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A map of the row-major bf16 [rows, cols] matrix at `base` in boxes of
+// box_rows x 64 (128 bytes, the swizzle's width); zeros outside the matrix.
+bool encode_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T>
 int dispatch(const Args& a, int block_m, int n_counters, cudaStream_t stream) {
-  static int resident[3][kMaxDevices] = {};
-  static int n_sms[3][kMaxDevices] = {};
+  static int resident[4][kMaxDevices] = {};
+  static int n_sms[4][kMaxDevices] = {};
   switch (block_m) {
     case kGemvRows: {
       const int cols = kGemvRowBytes / static_cast<int>(sizeof(T));
@@ -802,18 +1101,34 @@ int dispatch(const Args& a, int block_m, int n_counters, cudaStream_t stream) {
       if (R <= 0 || R > kMaxStageRows || R % 8 || R * ldw * static_cast<int>(sizeof(T)) > kStageBytes ||
           a.slice_len % R)
         return cudaErrorInvalidValue;
-      return launch(pinned_gemv_kernel<T>, kGemvSmem, resident[0], n_sms[0], a, n_counters,
-                    stream);
+      return launch(pinned_gemv_kernel<T>, kThreads, kGemvSmem, resident[0], n_sms[0], a,
+                    n_counters, stream);
     }
     case 16:
-      return launch(pinned_matmul_kernel<T, 16, 1, 4>, 0, resident[1], n_sms[1], a,
+      return launch(pinned_matmul_kernel<T, 16, 1, 4>, kThreads, 0, resident[1], n_sms[1], a,
                     n_counters, stream);
     case 64:
       if constexpr (std::is_same_v<T, __nv_bfloat16>)
-        return launch(pinned_mma_kernel, 0, resident[2], n_sms[2], a, n_counters, stream);
+        return launch(pinned_mma_kernel, kThreads, 0, resident[2], n_sms[2], a, n_counters,
+                      stream);
       else
-        return launch(pinned_matmul_kernel<T, 64, 4, 4>, 0, resident[2], n_sms[2], a,
+        return launch(pinned_matmul_kernel<T, 64, 4, 4>, kThreads, 0, resident[2], n_sms[2], a,
                       n_counters, stream);
+    case kWgTile:
+      if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        // TMA: 16-byte aligned bases and row strides; never another variant
+        if (a.K % 8 || a.N % 8 || reinterpret_cast<uintptr_t>(a.x) % 16 ||
+            reinterpret_cast<uintptr_t>(a.w) % 16)
+          return cudaErrorInvalidValue;
+        CUtensorMap tmap_x, tmap_w;
+        if (!encode_map(&tmap_x, a.x, a.M, a.K, kWgTile) ||
+            !encode_map(&tmap_w, a.w, a.K, a.N, kWgK))
+          return cudaErrorInvalidValue;
+        return launch(pinned_wgmma_kernel, kWgThreads, kWgSmem, resident[3], n_sms[3], a,
+                      n_counters, stream, tmap_x, tmap_w);
+      } else {
+        return cudaErrorInvalidValue;
+      }
     default:
       return cudaErrorInvalidValue;
   }
@@ -839,10 +1154,12 @@ int sm_probe(int* seen, int cap, int* n_ids, int n_blocks, void* stream) {
   return cudaGetLastError();
 }
 
-// block_m is 4 (M <= 4, decode), 16 (M <= 16) or 64; dtype is 0 for
-// float32, 1 for bfloat16.  The plan (persistent_matmul.py::tile_grid):
-// tiles output tiles, n_tiles_n of them across N, n_slices K slices of
-// slice_len, k_step the decode variant's rows per stage.  counters holds
+// block_m is 4 (M <= 4, decode), 16 (M <= 16), 64, or 128 (the wgmma
+// variant: bfloat16, K % 8 == 0, N % 8 == 0, 16-byte aligned x and w);
+// dtype is 0 for float32, 1 for bfloat16.  The plan
+// (persistent_matmul.py::tile_grid): tiles output tiles, n_tiles_n of them
+// across N, n_slices K slices of slice_len, a multiple of k_step, the
+// variant's K step (the decode variant's rows per stage).  counters holds
 // n_bands lane counters, the finished-unit count and, when n_slices > 1,
 // one arrival count per tile (all zeroed here); ws is the float32
 // [n_slices, M, N] workspace when n_slices > 1.  unit_sm / unit_hits may be
@@ -854,8 +1171,9 @@ int pinned_matmul(const void* x, const void* w, void* out, int M, int N, int K, 
                   int n_tiles_n, int tiles, int n_slices, int slice_len, int k_step,
                   int* counters, float* ws, int* unit_sm, int* unit_hits, int vec_x,
                   int vec_w, void* stream) {
-  if (n_slices < 1 || slice_len < 1 || (n_slices > 1 && ws == nullptr) ||
-      (block_m != kGemvRows && slice_len % kBlockK))
+  const int step = block_m == kGemvRows ? k_step : block_m == kWgTile ? kWgK : kBlockK;
+  if (n_slices < 1 || slice_len < 1 || (n_slices > 1 && ws == nullptr) || k_step != step ||
+      slice_len % step)
     return cudaErrorInvalidValue;
   Args a{x, w, out, M, N, K, sm_band, n_sm_ids, per_lane, n_tiles_n, n_slices, slice_len,
          tiles * n_slices, k_step, counters, counters + n_bands, counters + n_bands + 1, ws,

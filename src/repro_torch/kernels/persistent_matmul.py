@@ -5,8 +5,13 @@ Replaces the Pallas TPU kernel ``repro/kernels/persistent_matmul.py``
 ``csrc/persistent_matmul.cu``: persistent CTAs read ``%smid`` and return
 unless their SM is one of the task's ``n_bands`` SMs; on each allocated SM
 two CTAs claim lanes 0 and 1 (the self-interleaved halves) and walk
-``tile_of``'s map over the launch's work units.  See the source for what
-bounds each variant and why.
+``tile_of``'s map over the launch's work units.  The variant follows from
+the shape and type alone (``kernel_name``): a streaming decode kernel for
+M <= 4, a TMA-fed ``wgmma`` kernel with 128 x 128 tiles for the bf16
+prefill shapes whose rows TMA can stride (K and N multiples of 8),
+``mma.sync`` tiles for the other bf16 shapes and CUDA-core tiles for
+float32 and 4 < M <= 16.  See the source for what bounds each variant and
+why.
 
 A work unit is (row tile, col tile, K slice).  Where the output tiles are
 too few to fill the card, K is split into slices (``split_plan``, a
@@ -28,8 +33,9 @@ import torch
 
 from . import _build
 
-__all__ = ["TileTrace", "Grid", "tile_shape", "stage_rows", "split_plan", "tile_grid",
-           "unit_of", "tile_of", "sm_ids", "persistent_matmul", "persistent_matmul_traced"]
+__all__ = ["TileTrace", "Grid", "tile_shape", "kernel_name", "stage_rows", "split_plan",
+           "tile_grid", "unit_of", "tile_of", "sm_ids", "persistent_matmul",
+           "persistent_matmul_traced"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,19 +44,41 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # depend on the shape alone, never on the card or on n_bands, or results
 # would differ between band counts.
 FILL_LANES = 2 * 132
-BLOCK_K = 32          # K step of the tiled variants
+BLOCK_K = 32          # K step of the register-staged tiled variants
+WGMMA_TILE = 128      # rows and columns of a wgmma tile
+WGMMA_K = 64          # its K step: 64 bf16, one 128-byte swizzle row
+# A split wgmma unit writes a 64 KB float32 partial that the tile's last
+# unit reads back: on the H100 that costs about as much as 4 K rows of the
+# products per unit of the launch (fitted to scripts/wgmma_split_sweep.py)
+WGMMA_PARTIAL_ROWS = 4
 GEMV_ROW_BYTES = 512   # a decode unit's segment of each weight row
 STAGE_BYTES = 16384   # weights per stage of the decode variant's ring
 MAX_STAGE_ROWS = 128  # K rows per stage, at most (the x stage holds 4 x 128)
 
 
-def tile_shape(m: int, itemsize: int) -> tuple[int, int]:
-    """(rows, cols) of an output tile: the decode variant takes 4 rows and
-    512 bytes of each weight row (256 bf16 or 128 float32 columns) for M <= 4;
-    the tiled variant 16 x 64 or 64 x 64."""
+def tile_shape(m: int, k: int, n: int, itemsize: int) -> tuple[int, int]:
+    """(rows, cols) of an output tile, which names the variant: the decode
+    variant takes 4 rows and 512 bytes of each weight row (256 bf16 or 128
+    float32 columns) for M <= 4; the wgmma variant 128 x 128 for bf16 with
+    M > 16 where TMA can stride the rows (K % 8 == 0, N % 8 == 0); the
+    register-staged tiled variants 16 x 64 or 64 x 64."""
     if m <= 4:
         return 4, GEMV_ROW_BYTES // itemsize
-    return (16, 64) if m <= 16 else (64, 64)
+    if m <= 16:
+        return 16, 64
+    if itemsize == 2 and k % 8 == 0 and n % 8 == 0:
+        return WGMMA_TILE, WGMMA_TILE
+    return 64, 64
+
+
+def kernel_name(m: int, k: int, n: int, dtype: torch.dtype) -> str:
+    """The CUDA kernel that an [m, k] @ [k, n] launch in ``dtype`` runs."""
+    bm, _ = tile_shape(m, k, n, dtype.itemsize)
+    if bm == 4:
+        return "pinned_gemv_kernel"
+    if bm == WGMMA_TILE:
+        return "pinned_wgmma_kernel"
+    return "pinned_mma_kernel" if bm == 64 and dtype == torch.bfloat16 else "pinned_matmul_kernel"
 
 
 def stage_rows(n: int, itemsize: int) -> int:
@@ -74,7 +102,7 @@ class Grid:
     tiles: int
     n_slices: int
     slice_len: int   # a multiple of k_step; the last slice is ragged
-    k_step: int      # the variant's K step: a decode stage, or BLOCK_K
+    k_step: int      # the variant's K step: a decode stage, WGMMA_K or BLOCK_K
     per_lane: int
 
     @property
@@ -91,12 +119,17 @@ def split_plan(m: int, k: int, n: int, itemsize: int) -> tuple[int, int, int]:
     not split.  Otherwise the slice length (a multiple of the K step) is
     the one that minimises a lane's time, estimated as units per lane
     times (slice length + a fixed cost per unit): more slices fill more
-    lanes, and each unit costs a reduction."""
-    bm, bn = tile_shape(m, itemsize)
+    lanes, and each unit costs a reduction.  The wgmma variant's 128 x 128
+    partials are costed by their traffic instead: each unit of a split
+    launch adds WGMMA_PARTIAL_ROWS K rows to every lane's time."""
+    bm, bn = tile_shape(m, k, n, itemsize)
     tiles = -(-m // bm) * -(-n // bn)
+    partial_rows = 0
     if bm == 4:
         step = stage_rows(n, itemsize)
         unit_rows = step  # a unit's end costs about one stage
+    elif bm == WGMMA_TILE:
+        step, unit_rows, partial_rows = WGMMA_K, 0, WGMMA_PARTIAL_ROWS
     else:
         step, unit_rows = BLOCK_K, 4 * BLOCK_K
     steps = max(1, -(-k // step))
@@ -106,6 +139,8 @@ def split_plan(m: int, k: int, n: int, itemsize: int) -> tuple[int, int, int]:
     for q in range(steps, 0, -1):  # slice length in steps, longest first
         slices = -(-steps // q)
         cost = -(-tiles * slices // FILL_LANES) * (q * step + unit_rows)
+        if slices > 1:
+            cost += tiles * slices * partial_rows
         if best is None or cost < best[0]:
             best = (cost, slices, q * step)
     return best[1], best[2], step
@@ -113,7 +148,7 @@ def split_plan(m: int, k: int, n: int, itemsize: int) -> tuple[int, int, int]:
 
 def tile_grid(m: int, k: int, n: int, dtype: torch.dtype, n_bands: int) -> Grid:
     """The work units of one [m, k] @ [k, n] launch on ``n_bands`` bands."""
-    bm, bn = tile_shape(m, dtype.itemsize)
+    bm, bn = tile_shape(m, k, n, dtype.itemsize)
     n_tiles_n = -(-n // bn)
     tiles = -(-m // bm) * n_tiles_n
     n_slices, slice_len, step = split_plan(m, k, n, dtype.itemsize)
@@ -221,6 +256,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, n_bands: Optional[int],
     if not 1 <= n_bands <= len(ids):
         raise ValueError(f"n_bands={n_bands} outside 1..{len(ids)} SMs")
     g = tile_grid(m, k, n, x.dtype, n_bands)
+    if g.block_m == WGMMA_TILE:
+        # TMA reads from 16-byte aligned bases: a misaligned operand is
+        # copied, never sent to another variant
+        x = x if x.data_ptr() % 16 == 0 else x.clone()
+        w = w if w.data_ptr() % 16 == 0 else w.clone()
     table = _band_table(dev, n_bands)
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     split = g.n_slices > 1

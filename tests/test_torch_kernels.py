@@ -20,6 +20,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.persistent_matmul import (
+    WGMMA_K,
+    kernel_name,
     persistent_matmul,
     persistent_matmul_traced,
     stage_rows,
@@ -35,8 +37,12 @@ _PATH_SHAPES = [(4, 1024, 1024, _BF16), (4, 1024, 3072, _BF16), (4, 3072, 1024, 
                 (4, 4096, 4096, _BF16), (4, 4096, 14336, _BF16), (4, 14336, 4096, _BF16),
                 (4, 8192, 33, _BF16), (4, 4096, 16, _F32), (512, 8192, 33, _BF16),
                 (1024, 4096, 16, _F32)]
-# wide bf16 prefill tiles, which fill the card unsplit
-_WIDE_SHAPES = [(1024, 1024, 2048, _BF16), (1024, 4096, 14336, _BF16), (1024, 14336, 4096, _BF16)]
+# the wide bf16 prefill projections of both main paths (qwen3-0.6b, then
+# jamba-v0.1-52b), all on the wgmma variant
+_WIDE_SHAPES = [(1024, 1024, 1024, _BF16), (1024, 1024, 2048, _BF16), (1024, 1024, 3072, _BF16),
+                (1024, 2048, 1024, _BF16), (1024, 3072, 1024, _BF16),
+                (1024, 4096, 1024, _BF16), (1024, 4096, 4096, _BF16), (1024, 4096, 14336, _BF16),
+                (1024, 4096, 16384, _BF16), (1024, 8192, 4096, _BF16), (1024, 14336, 4096, _BF16)]
 # K not a multiple of the slice; N narrow, odd, or past one decode unit
 _RAGGED_SHAPES = [(3, 1000, 33, _BF16), (4, 200, 130, _F32), (100, 1000, 16, _F32),
                   (512, 1000, 33, _BF16), (4, 1000, 600, _BF16)]
@@ -163,8 +169,35 @@ class TestTileMap:
         assert (n_slices - 1) * slice_len < k <= n_slices * slice_len
         if tiles >= 2 * 132:
             assert n_slices == 1
-        if (m, k, n, dtype) in _WIDE_SHAPES:
-            assert n_slices == 1  # the wide prefill tiles run unsplit
+        if (m, k, n, dtype) in _WIDE_SHAPES:  # the wgmma variant and its K step
+            assert kernel_name(m, k, n, dtype) == "pinned_wgmma_kernel"
+            assert k_step == WGMMA_K
+
+    @pytest.mark.parametrize("bands", [1, 2, 8, 132])
+    @pytest.mark.parametrize("m,k,n,dtype", _WIDE_SHAPES)
+    def test_every_unit_once_at_the_wide_shapes(self, m, k, n, dtype, bands):
+        g = self._units_by_band(m, k, n, dtype, bands)
+        assert (g.block_m, g.block_n, g.k_step) == (128, 128, WGMMA_K)
+
+    @pytest.mark.parametrize("m,k,n,dtype,kernel", [
+        (512, 8192, 33, _BF16, "pinned_mma_kernel"),     # x_proj: N % 8 != 0
+        (100, 200, 130, _BF16, "pinned_mma_kernel"),     # ragged N
+        (100, 1000, 130, _BF16, "pinned_mma_kernel"),
+        (100, 1001, 136, _BF16, "pinned_mma_kernel"),    # K % 8 != 0
+        (100, 200, 136, _BF16, "pinned_wgmma_kernel"),   # ragged but TMA-strided
+        (1000, 1000, 1032, _BF16, "pinned_wgmma_kernel"),
+        (17, 64, 8, _BF16, "pinned_wgmma_kernel"),
+        (16, 1024, 1024, _BF16, "pinned_matmul_kernel"),  # 4 < M <= 16
+        (1024, 1024, 1024, _F32, "pinned_matmul_kernel"),
+        (1024, 4096, 16, _F32, "pinned_matmul_kernel"),  # the router
+        (4, 4096, 4096, _BF16, "pinned_gemv_kernel"),
+    ])
+    def test_variant_follows_from_shape_and_type(self, m, k, n, dtype, kernel):
+        """Only bf16 with M > 16 and 16-byte row strides takes the wgmma
+        variant; the choice is the same at every band count."""
+        assert kernel_name(m, k, n, dtype) == kernel
+        grids = {tile_grid(m, k, n, dtype, b) for b in (1, 2, 8, 132)}
+        assert len({(g.block_m, g.block_n, g.k_step, g.n_slices, g.slice_len) for g in grids}) == 1
 
     def test_stage_rows_keep_slabs_aligned(self):
         """A decode stage is 16 KB at most and a multiple of 8 rows, so every
@@ -344,6 +377,33 @@ class TestOnCard:
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(outs[0].float(), ref.matmul_ref(x, w).float(),
                                    rtol=tol, atol=tol * 8)
+
+    @pytest.mark.parametrize("m,k,n", [(100, 200, 136), (1000, 1000, 1032), (1024, 1024, 1024),
+                                       (1024, 4096, 4096)])
+    def test_wgmma_variant_once_per_unit_and_bit_identical(self, m, k, n):
+        """The wgmma variant against matmul_ref at eligible ragged and path
+        shapes: every unit once on its band's SM at n_bands 1, 8 and 132,
+        bit-identical outputs, also from a misaligned (copied) operand."""
+        self._need_card()
+        assert kernel_name(m, k, n, _BF16) == "pinned_wgmma_kernel"
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(_BF16)
+        w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(_BF16)
+        outs = []
+        for bands in (1, 8, 132):
+            out, trace = persistent_matmul_traced(x, w, bands)
+            g = tile_grid(m, k, n, _BF16, bands)
+            assert trace.tiles_done == g.units == trace.tile_hits.numel()
+            assert bool((trace.tile_hits == 1).all())
+            owner = [trace.allowed_sms[u // (2 * g.per_lane)] for u in range(g.units)]
+            assert trace.tile_sm.cpu().tolist() == owner
+            outs.append(out)
+        assert all(torch.equal(o, outs[0]) for o in outs)
+        shifted = torch.empty(m * k + 1, device="cuda", dtype=_BF16)[1:].view(m, k)
+        shifted.copy_(x)
+        assert torch.equal(persistent_matmul(shifted, w), outs[0])
+        torch.testing.assert_close(outs[0].float(), ref.matmul_ref(x, w).float(),
+                                   rtol=1e-2, atol=1e-2)
 
     @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
     @pytest.mark.parametrize("window", [None, 64])
