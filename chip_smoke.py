@@ -14,20 +14,25 @@ Runs from the repository root and imports only ``repro_torch`` (from
       all SMs}: work-unit coverage, the allocated-SM check, bit-identity
       across band counts; ragged K, N and M, for the wgmma variant also
       from a misaligned operand; each shape's variant named) and
-      flash_attention (prefill
-      shape, sliding window, ragged S); each kernel's device time
-      (CUDA-graph replay) beside its plain version, a library yardstick
-      and its bound (and GB/s for the M <= 4 matmul), and its time when
-      issued eagerly;
+      flash_attention through the route the model takes (``ops.mha_flash``
+      on [B, S, H, hd] q and [B, S, Hkv, hd] k/v, one launch of
+      ``flash_attention_gqa``) against ``mha_flash_ref``: the prefill
+      shape, group ratios 1, 2 and 4, sliding window, ragged S, float32,
+      hd 32 and 64, and the [BH, S, hd] entry bit-identical to it; each
+      kernel's device time (CUDA-graph replay) beside its plain version,
+      a library yardstick and its bound (and GB/s for the M <= 4 matmul),
+      and its time when issued eagerly;
    b. main path: full-width qwen3-0.6b in bf16 (random weights from a seed)
       through ``ServingEngine.generate``, two rounds of 4 requests of 256
       prompt tokens and 16 greedy tokens, with the kernels' exact launch
       counts; then the prefill logits against the same model on the plain
-      versions, both held to a float32 run of the plain versions (one block
-      at a time), and each block's own error on either path, reported;
+      versions (no kernel launches there: every counter is held still),
+      both held to a float32 run of the plain versions (one block at a
+      time), and each block's own error on either path, reported;
    c. profile: device time by kernel and the device's idle share over one
       prefill and eight decode steps (torch.profiler), with each pinned
-      matmul variant's launches in a prefill held to the shapes' choice;
+      matmul variant's and the flash variant's launches in a prefill held
+      to the shapes' choice;
    d. RT bridge: the measured decode step as an RTGPU task;
 4. jamba-v0.1-52b path, at full width cut to one period of 8 layers (the
    32 layers' 102.9 GB of bf16 weights exceed the card's 80 GB), after
@@ -171,10 +176,10 @@ def launch_counters() -> dict:
 def plain_kernels():
     """Every kernel call of the model path goes to its plain version."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import flash_attention_ref, matmul_ref, selective_scan_ref
+    from repro_torch.kernels.ref import matmul_ref, mha_flash_ref, selective_scan_ref
 
     with mock.patch.object(ops, "persistent_matmul", lambda x, w, n_bands=None: matmul_ref(x, w)), \
-            mock.patch.object(ops, "flash_attention", flash_attention_ref), \
+            mock.patch.object(ops, "flash_attention_gqa", mha_flash_ref), \
             mock.patch.object(ops, "selective_scan", selective_scan_ref):
         yield
 
@@ -217,10 +222,11 @@ def matmul_calls(cfg) -> dict:
     return dict(calls)
 
 
-def prefill_matmul_kernels(cfg) -> dict:
-    """The pinned matmul's launches in one prefill, by the CUDA kernel each
-    shape takes."""
+def prefill_kernels(cfg) -> dict:
+    """The pinned matmul's and flash attention's launches in one prefill, by
+    the CUDA kernel each shape takes."""
     import torch
+    from repro_torch.kernels import flash_attention
     from repro_torch.kernels.persistent_matmul import kernel_name
 
     chunk, _ = scan_chunks()
@@ -228,6 +234,9 @@ def prefill_matmul_kernels(cfg) -> dict:
     for (m, k, n, dt), calls in matmul_calls(cfg).items():
         if m in (BATCH * PROMPT, BATCH * chunk):
             out[kernel_name(m, k, n, getattr(torch, dt))] += calls // ROUNDS
+    n_attn = expected_launches(cfg)["flash_attention"] // ROUNDS
+    if n_attn:
+        out[flash_attention.kernel_name(getattr(torch, cfg.dtype), cfg.head_dim)] += n_attn
     return dict(out)
 
 
@@ -266,7 +275,8 @@ def phase_build() -> dict:
     for name, log in logs.items():
         kernel = "?"  # ptxas names the function, then gives its registers and spills
         for line in log.splitlines():
-            found = re.search(r"Function properties for \S*?([a-z][a-z_]*_kernel)", line)
+            found = re.search(r"Function properties for \S*?\d((?:pinned|flash|scan|sm)"
+                              r"[a-z0-9_]*_kernel)", line)
             if found:
                 kernel = found.group(1)
             if "registers" in line or "spill" in line:
@@ -343,24 +353,54 @@ RAGGED_WGMMA = [(100, 200, 136), (1000, 1000, 1032), (17, 64, 8), (300, 4104, 26
                 (130, 1000, 200), (1024, 1000, 3000)]
 
 
-def check_flash(b, s, h, hkv, hd, dtype, window, gen) -> float:
+def flash_inputs(b, s, h, hkv, hd, dtype, gen):
+    """q [B, S, H, hd] and k, v [B, S, Hkv, hd], as the model lays them out."""
+    import torch
+
+    return (torch.randn(b, s, n, hd, generator=gen, device="cuda").to(dtype)
+            for n in (h, hkv, hkv))
+
+
+def expand_heads(t, h):
+    """[B, S, Hkv, hd] -> [B * H, S, hd]: KV heads repeated to the query
+    heads, heads flattened into the batch (the [BH, S, hd] entry's input)."""
+    b, s, n, hd = t.shape
+    return t.repeat_interleave(h // n, dim=2).transpose(1, 2).reshape(b * h, s, hd).contiguous()
+
+
+def check_flash(b, s, h, hkv, hd, dtype, window, gen, old_entry=False) -> float:
+    """The model's route, ops.mha_flash on the card (one launch of
+    flash_attention_gqa on the tensors as they are), against mha_flash_ref;
+    with old_entry, also the [BH, S, hd] entry on the expanded tensors:
+    bit-identical to it, and against flash_attention_ref."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref, mha_flash_ref
 
-    q = torch.randn(b, s, h, hd, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(b, s, hkv, hd, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(b, s, hkv, hd, generator=gen, device="cuda").to(dtype)
-    got = ops.mha_flash(q, k, v, scale=hd ** -0.5, window=window)
-    with mock.patch.object(ops, "flash_attention", flash_attention_ref):
-        want = ops.mha_flash(q, k, v, scale=hd ** -0.5, window=window)
+    q, k, v = flash_inputs(b, s, h, hkv, hd, dtype, gen)
+    scale = hd ** -0.5
+    before = flash_attention.launches
+    got = ops.mha_flash(q, k, v, scale=scale, window=window)
+    check(flash_attention.launches == before + 1,
+          f"ops.mha_flash launched {flash_attention.launches - before} kernels, not one")
+    want = mha_flash_ref(q, k, v, scale=scale, window=window)
     torch.cuda.synchronize()
+    case = f"flash b={b} s={s} h={h}/{hkv} hd={hd} {dtype} window={window}"
     tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
     err = (got.float() - want.float()).abs().max().item()
-    check(bool(torch.isfinite(got).all()) and
+    check(got.shape == (b, s, h * hd) and bool(torch.isfinite(got).all()) and
           torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-          f"flash b={b} s={s} h={h}/{hkv} hd={hd} {dtype} window={window}: "
-          f"max abs err {err}")
+          f"{case}: max abs err {err}")
+    if old_entry:
+        qf, kf, vf = (expand_heads(t, h) for t in (q, k, v))
+        old = flash_attention(qf, kf, vf, scale=scale, window=window)
+        check(torch.equal(old, got.view(b, s, h, hd).transpose(1, 2).reshape(b * h, s, hd)),
+              f"{case}: the [BH, S, hd] entry differs from the [B, S, H, hd] entry")
+        ref = flash_attention_ref(qf, kf, vf, scale=scale, window=window)
+        check(torch.allclose(old.float(), ref.float(), rtol=tol, atol=tol),
+              f"{case}: the [BH, S, hd] entry against flash_attention_ref: max abs err "
+              f"{(old.float() - ref.float()).abs().max().item()}")
     return err
 
 
@@ -438,30 +478,39 @@ def matmul_rows(cfg, calls: dict, gen) -> list[dict]:
 
 
 def flash_row(cfg, calls: int, gen) -> dict:
+    """ops.mha_flash as the main path calls it, on [B, S, H, hd] q and [B,
+    S, Hkv, hd] k/v, beside mha_flash_ref, SDPA on [B, H, S, hd] views of the
+    same tensors (a yardstick the port never calls), the bound, and the
+    [BH, S, hd] entry on expanded inputs (ms_expanded, the kernel alone)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention, kernel_name
+    from repro_torch.kernels.ref import mha_flash_ref
 
-    dt, hd, bh = getattr(torch, cfg.dtype), cfg.head_dim, BATCH * cfg.n_heads
-    qf, kf, vf = (torch.randn(bh, PROMPT, hd, generator=gen, device="cuda").to(dt)
-                  for _ in range(3))
-    q4, k4, v4 = (t.reshape(BATCH, cfg.n_heads, PROMPT, hd) for t in (qf, kf, vf))
+    dt, hd, h, hkv = getattr(torch, cfg.dtype), cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q, k, v = flash_inputs(BATCH, PROMPT, h, hkv, hd, dt, gen)
+    qf, kf, vf = (expand_heads(t, h) for t in (q, k, v))
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     scale = hd ** -0.5
+    n_bytes = 2 * BATCH * PROMPT * (h + hkv) * hd * q.element_size()  # q, o; k, v
     row = {
-        "bh": bh, "s": PROMPT, "hd": hd, "calls": calls,
-        "ms": time_ms(lambda: flash_attention(qf, kf, vf, scale=scale)),
-        "eager_ms": eager_ms(lambda: flash_attention(qf, kf, vf, scale=scale)),
-        "plain_ms": time_ms(lambda: flash_attention_ref(qf, kf, vf, scale=scale)),
+        "b": BATCH, "s": PROMPT, "h": h, "hkv": hkv, "hd": hd, "calls": calls,
+        "kernel": kernel_name(dt, hd),
+        "ms": time_ms(lambda: ops.mha_flash(q, k, v, scale=scale)),
+        "eager_ms": eager_ms(lambda: ops.mha_flash(q, k, v, scale=scale)),
+        "ms_expanded": time_ms(lambda: flash_attention(qf, kf, vf, scale=scale)),
+        "plain_ms": time_ms(lambda: mha_flash_ref(q, k, v, scale=scale)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, scale=scale)),
+            qh, kh, vh, is_causal=True, scale=scale, enable_gqa=True)),
         # causal work: query i attends i+1 keys, two products of hd each
-        **bound(4 * bh * PROMPT * hd * qf.element_size(),
-                4.0 * hd * bh * PROMPT * (PROMPT + 1) / 2),
+        **bound(n_bytes, 4.0 * hd * BATCH * h * PROMPT * (PROMPT + 1) / 2),
     }
-    print(f"[kernels] {cfg.name} flash BH={bh} S={PROMPT} hd={hd} x{calls}: {row['ms']:.4f} ms "
-          f"(issued eagerly {row['eager_ms']:.4f}; plain {row['plain_ms']:.4f}, "
-          f"sdpa {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} by {row['bound_by']})")
+    print(f"[kernels] {cfg.name} flash B={BATCH} S={PROMPT} H={h}/{hkv} hd={hd} x{calls} on "
+          f"{row['kernel']}: ops.mha_flash {row['ms']:.4f} ms, {row['ms'] / row['library_ms']:.2f}"
+          f"x sdpa (issued eagerly {row['eager_ms']:.4f}; [BH, S, hd] entry on expanded inputs "
+          f"{row['ms_expanded']:.4f}; plain {row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, "
+          f"bound {row['bound_ms']:.4f} by {row['bound_by']})")
     return row
 
 
@@ -523,14 +572,21 @@ def phase_kernels_qwen(cfg, n_sms) -> dict:
           f"max abs err bf16 {max(v for key, v in mm_err.items() if 'bfloat16' in key[3]):.3g}, "
           f"f32 {max(v for key, v in mm_err.items() if 'float32' in key[3]):.3g}")
     hd = cfg.head_dim
-    fl_err = check_flash(BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, hd, dt, None, gen)
+    fl_err = check_flash(BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, hd, dt, None, gen,
+                         old_entry=True)
     fl_extra = {
         "window64_bf16": check_flash(BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, hd, dt, 64, gen),
+        "group1": check_flash(2, PROMPT, 4, 4, hd, dt, None, gen, old_entry=True),
+        "group2_window64": check_flash(2, PROMPT, 4, 2, hd, dt, 64, gen, old_entry=True),
+        "group4": check_flash(2, PROMPT, 8, 2, hd, dt, None, gen),
+        "group4_ragged77": check_flash(2, 77, 8, 2, hd, dt, None, gen),
+        "group3_ragged200_window64": check_flash(1, 200, 3, 1, hd, dt, 64, gen),
         "f32": check_flash(2, PROMPT, 4, 2, hd, torch.float32, None, gen),
         "f32_window64_ragged_hd64": check_flash(2, 200, 4, 2, 64, torch.float32, 64, gen),
         "f32_hd32_ragged": check_flash(1, 77, 2, 1, 32, torch.float32, None, gen),
         "bf16_window64_ragged_hd64": check_flash(2, 200, 4, 2, 64, torch.bfloat16, 64, gen),
-        "bf16_hd32_ragged": check_flash(1, 77, 2, 1, 32, torch.bfloat16, None, gen),
+        "bf16_hd32_ragged": check_flash(1, 77, 2, 1, 32, torch.bfloat16, None, gen,
+                                        old_entry=True),
     }
     print(f"[kernels] flash_attention ok: max abs err {fl_err:.3g} (path), {fl_extra}")
 
@@ -578,8 +634,11 @@ def phase_kernels_jamba(cfg, n_sms) -> dict:
             m, k, n, dtype, gen, (1, 8, n_sms) if every else (n_sms,))
     print(f"[kernels] persistent_matmul at {len(mm_err)} jamba shapes ok; max abs err "
           f"{max(mm_err.values()):.3g}")
-    fl_err = check_flash(BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt, None, gen)
-    print(f"[kernels] flash_attention at jamba's shape ok: max abs err {fl_err:.3g}")
+    fl_err = check_flash(BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt, None, gen,
+                         old_entry=True)
+    fl_win = check_flash(BATCH, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dt, 64, gen)
+    print(f"[kernels] flash_attention at jamba's shape ok: max abs err {fl_err:.3g} "
+          f"(window 64: {fl_win:.3g})")
 
     expected = expected_launches(cfg)
     return {"matmul_rows": matmul_rows(cfg, calls, gen),
@@ -670,8 +729,11 @@ def phase_main_path(cfg) -> dict:
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts[0], device="cuda")
         got, _ = model.prefill(tokens, model.init_caches(BATCH, MAX_CONTEXT))
+        before = {name: fn.launches for name, fn in counters.items()}
         with plain_kernels():
             want, _ = model.prefill(tokens, model.init_caches(BATCH, MAX_CONTEXT))
+        moved = {name: fn.launches - before[name] for name, fn in counters.items()}
+        check(not any(moved.values()), f"{cfg.name}: the plain path launched kernels: {moved}")
         truth, block_errs = prefill_f32(model, tokens)
     got, want = got.float(), want.float()
     check(got.shape == (BATCH, 1, cfg.vocab) and bool(torch.isfinite(got).all()),
@@ -733,10 +795,10 @@ def _profile(fn, steps: int) -> dict:
             rows.append({"name": e.key, "calls": e.count, "device_ms": dev_us / 1e3 / steps})
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    pinned = collections.Counter()  # the pinned matmul's variants: launches, ms
+    pinned = collections.Counter()  # the pinned matmul's and flash's variants: launches, ms
     pinned_ms = collections.Counter()
     for r in rows:
-        found = re.search(r"(pinned_[a-z]+_kernel)", r["name"])
+        found = re.search(r"((pinned|flash)_[a-z0-9]+_kernel)", r["name"])
         if found:
             pinned[found.group(1)] += r["calls"]
             pinned_ms[found.group(1)] += r["device_ms"]
@@ -777,12 +839,13 @@ def phase_profile(engine, prompt) -> dict:
         for row in r["top"][:6]:
             print(f"[profile]   {row['device_ms']:.4f} ms  x{row['calls']}  {row['name'][:90]}")
         for name, calls in sorted(r["pinned_launches"].items()):
-            print(f"[profile]   pinned matmul {name}: x{calls // steps[phase]}/step, "
+            kind = "pinned matmul" if name.startswith("pinned") else "flash attention"
+            print(f"[profile]   {kind} {name}: x{calls // steps[phase]}/step, "
                   f"{r['pinned_ms'][name]:.4f} ms/step")
     if out["prefill"]["idle_share"] is not None:
-        want = prefill_matmul_kernels(model.cfg)
+        want = prefill_kernels(model.cfg)
         check(out["prefill"]["pinned_launches"] == want,
-              f"{model.cfg.name} prefill: pinned matmul launches by kernel "
+              f"{model.cfg.name} prefill: matmul and flash launches by kernel "
               f"{out['prefill']['pinned_launches']}, the shapes give {want}")
     return out
 

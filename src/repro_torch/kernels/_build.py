@@ -1,10 +1,11 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes
-``build/lib<name>.so`` at the repository root, compiled for ``sm_90a``.
-Nothing is built at import: the first wrapper call builds its library
-(about seconds per source), and :func:`build_all` builds every source at
-once with one nvcc process each.
+``build/lib<name>.so`` at the repository root, compiled for ``sm_90a``;
+the Hopper helpers the sources share are in ``csrc/hopper.cuh``, and an
+edited header rebuilds every library.  Nothing is built at import: the
+first wrapper call builds its library (about seconds per source), and
+:func:`build_all` builds every source at once with one nvcc process each.
 """
 from __future__ import annotations
 
@@ -43,9 +44,13 @@ def _target(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Whether lib<name>.so is missing or older than its source or any of
+    the shared headers (``csrc/*.cuh``) the sources include."""
     so = _target(name)
-    src = CSRC / f"{name}.cu"
-    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+    if not so.exists():
+        return True
+    inputs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return so.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def _start(name: str) -> subprocess.Popen:

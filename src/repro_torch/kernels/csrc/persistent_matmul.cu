@@ -90,6 +90,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -186,10 +188,6 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ unsigned sm_id() {
   unsigned r;
   asm volatile("mov.u32 %0, %%smid;" : "=r"(r));
@@ -202,71 +200,6 @@ __device__ __forceinline__ unsigned sm_id_bound() {
   return r;
 }
 
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count = 1) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
-}
-// The one arrival of a phase, expecting `bytes` of bulk copies.
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-// Waits for the phase of `parity` to complete.  A phase that never
-// completes is a fault in the byte count: trap after about 2**32 cycles
-// rather than hang the card.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
-  const long long start = clock64();
-  for (;;) {
-    unsigned done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n" : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - start > (1LL << 32)) __trap();
-  }
-}
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
-// shared by the copy engine, completing on `bar`; cached in L2 only.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-// The box of `map` at (column c0, row c1) -> shared memory, completing on
-// `bar`; elements outside the tensor arrive as zeros.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(smem_addr(bar)) : "memory");
-}
-
-// A wgmma shared-memory descriptor, 128-byte swizzle: the start address,
-// the leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t wg_desc(unsigned addr, unsigned lbo, unsigned sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
 // Keeps the compiler from moving accesses of `d` across the wgmma fences
 // and waits, which it cannot see are tied to the registers.
 __device__ __forceinline__ void wg_fence_regs(float* d) {
@@ -1049,30 +982,6 @@ int launch(Kernel kernel, int threads, int smem, int* resident, int* n_sms, cons
   const int grid = 2 * resident[dev] * n_sms[dev];
   kernel<<<grid, threads, smem, stream>>>(a, maps...);
   return cudaGetLastError();
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, looked up once through the runtime.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A map of the row-major bf16 [rows, cols] matrix at `base` in boxes of

@@ -1,10 +1,11 @@
 """Model-facing wrappers around the hand kernels.
 
-They adapt model-layer shapes to kernel layouts (GQA expansion, head
-flattening, contiguous scan operands).  A CPU tensor goes to the kernel's
-plain PyTorch version, a CUDA tensor to the kernel; there is no other
-fallback.  The TPU wrappers'
-divisibility rules do not apply: the CUDA kernels mask ragged edges.
+They adapt model-layer shapes to kernel layouts (contiguous scan
+operands); attention needs no adapting, since the flash kernel reads the
+model's [B, S, H, hd] layout and GQA itself.  A CPU tensor goes to the
+kernel's plain PyTorch version, a CUDA tensor to the kernel; there is no
+other fallback.  The TPU wrappers' divisibility rules do not apply: the
+CUDA kernels mask ragged edges.
 """
 from __future__ import annotations
 
@@ -12,9 +13,9 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention_gqa
 from .persistent_matmul import persistent_matmul
-from .ref import flash_attention_ref, matmul_ref, selective_scan_ref
+from .ref import matmul_ref, mha_flash_ref, selective_scan_ref
 from .selective_scan import selective_scan
 
 __all__ = ["pinned_matmul", "mha_flash", "mamba_scan"]
@@ -38,18 +39,11 @@ def pinned_matmul(x: torch.Tensor, w: torch.Tensor, *,
 
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: float, window: Optional[int] = None) -> torch.Tensor:
-    """q: [B, S, H, hd]; k/v: [B, S, Hkv, hd] -> [B, S, H*hd]."""
-    b, s, h, hd = q.shape
-    hkv = k.shape[2]
-    if hkv != h:
-        k = k.repeat_interleave(h // hkv, dim=2)
-        v = v.repeat_interleave(h // hkv, dim=2)
-    qf = q.transpose(1, 2).reshape(b * h, s, hd).contiguous()
-    kf = k.transpose(1, 2).reshape(b * h, s, hd).contiguous()
-    vf = v.transpose(1, 2).reshape(b * h, s, hd).contiguous()
-    attend = flash_attention_ref if q.device.type == "cpu" else flash_attention
-    out = attend(qf, kf, vf, scale=scale, window=window)
-    return out.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
+    """q: [B, S, H, hd]; k/v: [B, S, Hkv, hd] -> [B, S, H*hd].  On the card
+    one kernel launch reads the tensors as they are: no copy."""
+    if q.device.type == "cpu":
+        return mha_flash_ref(q, k, v, scale=scale, window=window)
+    return flash_attention_gqa(q, k, v, scale=scale, window=window)
 
 
 def mamba_scan(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,

@@ -9,7 +9,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["matmul_ref", "flash_attention_ref", "selective_scan_ref"]
+__all__ = ["matmul_ref", "flash_attention_ref", "mha_flash_ref", "selective_scan_ref"]
 
 
 def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -31,6 +31,22 @@ def flash_attention_ref(q, k, v, *, scale: float, window: Optional[int] = None):
     return torch.einsum(
         "bqk,bkd->bqd", probs.to(v.dtype).float(), v.float()
     ).to(q.dtype)
+
+
+def mha_flash_ref(q, k, v, *, scale: float, window: Optional[int] = None):
+    """q: [B, S, H, hd]; k/v: [B, S, Hkv, hd] -> [B, S, H*hd]: the flash
+    kernel's [B, S, H, hd] function, as the JAX wrapper computes it (KV
+    heads repeated to the query heads, heads flattened into the batch)."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    qf = q.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    kf = k.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    vf = v.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    out = flash_attention_ref(qf, kf, vf, scale=scale, window=window)
+    return out.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
 
 
 def selective_scan_ref(abar, bx, c, h0=None):

@@ -3,9 +3,11 @@
 Counterpart of the self-attention part of ``repro.models.attention``: GQA
 (any n_heads/n_kv_heads ratio), qk-norm (Qwen3), half-split rotary, causal
 and sliding-window masking.  Prefill attention runs through
-``kernels.ops.mha_flash`` at every sequence length (the hand flash kernel
-on the card); decode attention, one query over the cache, stays plain
-PyTorch, as in the JAX package.
+``kernels.ops.mha_flash`` at every sequence length: on the card one launch
+of the hand flash kernel, which reads q [B, S, H, hd] and k/v [B, S, Hkv,
+hd] as this module makes them (GQA included) and writes [B, S, H*hd], the
+output projection's input.  Decode attention, one query over the cache,
+stays plain PyTorch, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -87,8 +89,9 @@ def _sdpa_small(q, k, v, mask, scale):
 
 
 def _causal_attention(q, k, v, scale, window):
-    """Prefill attention: the hand flash kernel on the card, its plain
-    version on the CPU, at every sequence length."""
+    """Prefill attention: the hand flash kernel on the card (one launch, no
+    copy of q, k or v), its plain version on the CPU, at every sequence
+    length."""
     return ops.mha_flash(q, k, v, scale=scale, window=window)
 
 

@@ -17,7 +17,8 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.selective_scan import selective_scan as jscan
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_gqa
+from repro_torch.kernels.flash_attention import kernel_name as flash_kernel_name
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.persistent_matmul import (
     WGMMA_K,
@@ -232,6 +233,26 @@ class TestFlashParity:
         assert got.shape == (b, s, h * hd)
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
 
+    @pytest.mark.parametrize("s,hd", [(256, 32), (256, 128), (200, 64), (77, 128)])
+    @pytest.mark.parametrize("window", [None, 64])
+    @pytest.mark.parametrize("group", [1, 2, 4])
+    def test_mha_flash_ref_matches_jax_ops(self, group, window, s, hd):
+        """The [B, S, H, hd] function the kernel computes: mha_flash_ref and
+        ops.mha_flash on the CPU against the JAX wrapper over the Pallas
+        kernel, at group ratios 1, 2 and 4, with and without a window, at a
+        full and a ragged S."""
+        b, hkv = 1, 2
+        h = group * hkv
+        qj, qt = _both(_rand(10 + s, (b, s, h, hd)))
+        kj, kt = _both(_rand(11 + hd, (b, s, hkv, hd)))
+        vj, vt = _both(_rand(12 + group, (b, s, hkv, hd)))
+        want = np.asarray(jops.mha_flash(qj, kj, vj, scale=hd ** -0.5, window=window,
+                                         interpret=True))
+        got = ref.mha_flash_ref(qt, kt, vt, scale=hd ** -0.5, window=window)
+        assert got.shape == (b, s, h * hd)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+        assert torch.equal(ops.mha_flash(qt, kt, vt, scale=hd ** -0.5, window=window), got)
+
     def test_bf16_ref_matches_jax_ref(self):
         bh, s, hd = 2, 128, 32
         (qj, qt), (kj, kt), (vj, vt) = (_both(_rand(7 + i, (bh, s, hd)), "bfloat16")
@@ -315,6 +336,63 @@ class TestWrappers:
         with pytest.raises(ValueError):
             flash_attention(torch.randn(1, 8, 32), torch.randn(1, 8, 32),
                             torch.randn(1, 8, 32), scale=0.1)
+
+    @pytest.mark.parametrize("case", ["cpu", "group", "last_dim", "head_dim", "dtype", "shape",
+                                      "stride"])
+    def test_gqa_wrapper_refuses_what_the_kernel_does_not_take(self, case):
+        """flash_attention_gqa raises (no copy, no launch) on CPU tensors, on
+        H % Hkv != 0, on a non-contiguous last dimension, on an unsupported
+        head dim or dtype, on mismatched shapes and on unaligned strides."""
+        b, s, h, hkv, hd = 1, 16, 4, 2, 32
+        q, k, v = torch.randn(b, s, h, hd), torch.randn(b, s, hkv, hd), torch.randn(b, s, hkv, hd)
+        error, match = ValueError, None
+        if case == "cpu":
+            match = "CUDA"
+        elif case == "group":
+            q, match = torch.randn(b, s, 3, hd), "share"
+        elif case == "last_dim":
+            q, match = torch.randn(b, s, hd, h).transpose(2, 3), "contiguous"
+        elif case == "head_dim":
+            q, k, v = (torch.randn(b, s, n, 48) for n in (h, hkv, hkv))
+            match = "head_dim"
+        elif case == "dtype":
+            q, k, v = (t.half() for t in (q, k, v))
+            error = TypeError
+        elif case == "shape":
+            k, match = torch.randn(b, s + 1, hkv, hd), "B, S, Hkv, hd"
+        else:  # a position stride of 130 floats: rows not 16-byte aligned
+            q, match = torch.randn(b, s, h * hd + 2)[..., :h * hd].view(b, s, h, hd), "16-byte"
+        with pytest.raises(error, match=match):
+            flash_attention_gqa(q, k, v, scale=0.1)
+        assert flash_attention.launches == 0
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("hd", [32, 64, 128])
+    def test_flash_kernel_name_covers_every_dtype_and_head_dim(self, dtype, hd):
+        want = ("flash_f32_kernel" if dtype == torch.float32 else
+                "flash_mma_kernel" if hd == 32 else "flash_wgmma_kernel")
+        assert flash_kernel_name(dtype, hd) == want
+        with pytest.raises(ValueError):
+            flash_kernel_name(dtype, 48)
+        with pytest.raises(ValueError):
+            flash_kernel_name(torch.float16, hd)
+
+    def test_mha_flash_hands_the_model_tensors_to_one_kernel_call(self, monkeypatch):
+        """Off the CPU, ops.mha_flash is one call of flash_attention_gqa on
+        the tensors as the model made them: no repeat, transpose or copy."""
+        calls = []
+
+        def entry(q, k, v, *, scale, window=None):
+            calls.append((q, k, v, scale, window))
+            return torch.empty(q.shape[0], q.shape[1], q.shape[2] * q.shape[3], device="meta")
+
+        monkeypatch.setattr(ops, "flash_attention_gqa", entry)
+        q = torch.empty(2, 16, 8, 64, device="meta")
+        k, v = torch.empty(2, 16, 2, 64, device="meta"), torch.empty(2, 16, 2, 64, device="meta")
+        out = ops.mha_flash(q, k, v, scale=0.125, window=8)
+        assert len(calls) == 1 and out.shape == (2, 16, 512)
+        assert calls[0][0] is q and calls[0][1] is k and calls[0][2] is v
+        assert calls[0][3:] == (0.125, 8)
 
     def test_cpu_scan_leaves_its_launch_counter_at_zero(self):
         at, bt, ct = (torch.from_numpy(a) for a in _scan_inputs(4, 1, 8, 4, 16))
@@ -413,6 +491,41 @@ class TestOnCard:
         got = flash_attention(q, k, v, scale=0.125, window=window)
         want = ref.flash_attention_ref(q, k, v, scale=0.125, window=window)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.bfloat16, 3e-2)])
+    @pytest.mark.parametrize("window", [None, 64])
+    @pytest.mark.parametrize("s", [256, 200])
+    @pytest.mark.parametrize("group", [1, 2, 4])
+    def test_flash_gqa_matches_ref(self, group, s, window, dtype, tol):
+        """The [B, S, H, hd] entry against mha_flash_ref: group ratios 1, 2
+        and 4, a ragged S, a window; the output read as [B, S, H * hd]."""
+        self._need_card()
+        gen = torch.Generator(device="cuda").manual_seed(group * 1000 + s)
+        b, hkv, hd = 2, 2, 128
+        q = torch.randn(b, s, group * hkv, hd, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(b, s, hkv, hd, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        got = flash_attention_gqa(q, k, v, scale=hd ** -0.5, window=window)
+        assert got.shape == (b, s, group * hkv * hd)
+        want = ref.mha_flash_ref(q, k, v, scale=hd ** -0.5, window=window)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+    @pytest.mark.parametrize("hd", [32, 64, 128])
+    @pytest.mark.parametrize("window", [None, 64])
+    def test_flash_old_entry_bit_identical_to_new(self, window, hd):
+        """The [BH, S, hd] entry on expanded, head-flattened inputs gives the
+        very bits of the [B, S, H, hd] entry."""
+        self._need_card()
+        gen = torch.Generator(device="cuda").manual_seed(hd)
+        b, s, h, hkv = 2, 200, 4, 2
+        q = torch.randn(b, s, h, hd, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(b, s, hkv, hd, generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        new = flash_attention_gqa(q, k, v, scale=0.1, window=window)
+        flat = [t.repeat_interleave(h // t.shape[2], 2).transpose(1, 2).reshape(b * h, s, hd)
+                .contiguous() for t in (q, k, v)]
+        old = flash_attention(*flat, scale=0.1, window=window)
+        assert torch.equal(old, new.view(b, s, h, hd).transpose(1, 2).reshape(b * h, s, hd))
 
     @pytest.mark.parametrize("c_dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("s,d,n", [(1, 100, 16), (77, 300, 8), (200, 70, 4), (256, 512, 16)])
