@@ -33,7 +33,12 @@ Runs from the repository root and imports only ``repro_torch`` (from
       prefill and eight decode steps (torch.profiler), with each pinned
       matmul variant's and the flash variant's launches in a prefill held
       to the shapes' choice;
-   d. RT bridge: the measured decode step as an RTGPU task;
+   d. admission: the decode step's device-busy time and wall measured at
+      five SM counts and fitted (t(m) <= A/m + L: GW = 2A + L, GL = L; the
+      host's wall goes into the CPU segments), the task admitted by a port
+      AdmissionController over the card's SMs (1 < GN < all), then rounds
+      through ``generate`` registered: every pinned matmul launch traced on
+      the GN SMs, and each decode step's device-busy time held to GR^(GN);
 4. jamba-v0.1-52b path, at full width cut to one period of 8 layers (the
    32 layers' 102.9 GB of bf16 weights exceed the card's 80 GB), after
    the qwen engine is freed: the same four phases, with selective_scan
@@ -54,6 +59,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -178,7 +184,7 @@ def plain_kernels():
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_ref, mha_flash_ref, selective_scan_ref
 
-    with mock.patch.object(ops, "persistent_matmul", lambda x, w, n_bands=None: matmul_ref(x, w)), \
+    with mock.patch.object(ops, "persistent_matmul", lambda x, w, *_: matmul_ref(x, w)), \
             mock.patch.object(ops, "flash_attention_gqa", mha_flash_ref), \
             mock.patch.object(ops, "selective_scan", selective_scan_ref):
         yield
@@ -286,20 +292,25 @@ def phase_build() -> dict:
 
 def check_matmul(m, k, n, dtype, gen, band_counts) -> float:
     """The kernel against matmul_ref: every work unit computed once, on an
-    SM of its band, at each band count; bit-identical outputs across band
-    counts and between traced and untraced launches, and for the wgmma
-    variant from operands at a misaligned base (copied, same variant)."""
+    SM of its band, at each band count and on the card's last third of SMs
+    (a range that starts past SM 0, as a second admitted service's does);
+    bit-identical outputs across band counts and ranges and between traced
+    and untraced launches, and for the wgmma variant from operands at a
+    misaligned base (copied, same variant)."""
     import torch
     from repro_torch.kernels.persistent_matmul import (
-        kernel_name, persistent_matmul, persistent_matmul_traced, tile_grid)
+        kernel_name, persistent_matmul, persistent_matmul_traced, sm_ids, tile_grid)
     from repro_torch.kernels.ref import matmul_ref
 
     x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
     w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(dtype)
     want = matmul_ref(x, w)
+    ids = sm_ids(x.device)
+    last_third = (len(ids) // 3, len(ids) - len(ids) // 3)
+    ranges = [(n_bands, 0) for n_bands in band_counts] + [last_third]
     outs = []
-    for n_bands in band_counts:
-        got, trace = persistent_matmul_traced(x, w, n_bands)
+    for n_bands, first in ranges:
+        got, trace = persistent_matmul_traced(x, w, n_bands, first)
         torch.cuda.synchronize()
         g = tile_grid(m, k, n, dtype, n_bands)
         hits = trace.tile_hits.cpu()
@@ -308,12 +319,13 @@ def check_matmul(m, k, n, dtype, gen, band_counts) -> float:
               f"units done, hits {hits.min().item()}..{hits.max().item()}")
         owner = torch.tensor([trace.allowed_sms[u // (2 * g.per_lane)] for u in range(g.units)],
                              dtype=torch.int32)
-        check(torch.equal(trace.tile_sm.cpu(), owner),
-              f"matmul {m}x{k}x{n} n_bands={n_bands}: a unit ran off its band's SM")
+        check(trace.allowed_sms == ids[first:first + n_bands]
+              and torch.equal(trace.tile_sm.cpu(), owner),
+              f"matmul {m}x{k}x{n} SMs {first}+{n_bands}: a unit ran off its band's SM")
         outs.append(got)
-    for n_bands, o in zip(band_counts[1:], outs[1:]):
+    for (n_bands, first), o in zip(ranges[1:], outs[1:]):
         check(torch.equal(o, outs[0]),
-              f"matmul {m}x{k}x{n} {dtype}: n_bands={n_bands} differs from "
+              f"matmul {m}x{k}x{n} {dtype}: SMs {first}+{n_bands} differ from "
               f"n_bands={band_counts[0]}")
     check(torch.equal(persistent_matmul(x, w), outs[0]), "untraced launch differs")
     if kernel_name(m, k, n, dtype) == "pinned_wgmma_kernel":
@@ -850,22 +862,175 @@ def phase_profile(engine, prompt) -> dict:
     return out
 
 
-def phase_rt(cfg, decode_s: float) -> dict:
-    from repro_torch.runtime import ServingTaskSpec, serving_task_to_rt
+def print_calibration(name, meas: dict, sms, why: str = "") -> None:
+    for m in sms:
+        dev, wall = meas[m]["device_ms"], meas[m]["wall_ms"]
+        print(f"[rt] {name}: decode step on {m} SMs{why}: device busy "
+              f"{' '.join(f'{t:.4f}' for t in dev)} ms (largest {max(dev):.4f}); wall "
+              f"{' '.join(f'{t:.3f}' for t in wall)} ms; prefill wall "
+              f"{meas[m]['prefill_ms']:.3f} ms")
 
-    spec = ServingTaskSpec(
-        name=f"chat-{cfg.name}", arch_id=cfg.name, period_ms=1000.0, deadline_ms=500.0,
-        batch=BATCH, seq_len=PROMPT, new_tokens=NEW_TOKENS, roofline_step_s=decode_s,
-        dominant="memory_s", vocab=cfg.vocab,
-    )
-    task = serving_task_to_rt(spec)
+
+def served_round(engine, prompt, gn: int, per_round: dict) -> dict:
+    """One round through ``generate`` with the engine registered, every
+    pinned matmul launched traced: each launch must carry n_bands = GN from
+    SM 0 (the one service of its front door) and run every work unit once,
+    on one of the GN allocated SMs.  The kernels'
+    counts are set to 0 just before and read just after."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.persistent_matmul import persistent_matmul_traced, tile_grid
+
+    launches = []
+
+    def traced(x, w, n_bands=None, first_sm=0):
+        got, trace = persistent_matmul_traced(x, w, n_bands, first_sm)
+        launches.append((tuple(x.shape), w.shape[1], x.dtype, (n_bands, first_sm), trace))
+        return got
+
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with mock.patch.object(ops, "persistent_matmul", traced):
+        out, _ = engine.generate(prompt, max_new_tokens=NEW_TOKENS)
+    counts = {name: fn.launches for name, fn in counters.items()}
+    torch.cuda.synchronize()
+    check(out.shape == (BATCH, NEW_TOKENS), f"tokens shape {out.shape}")
+    check(counts == per_round, f"registered round: launches {counts} != {per_round}")
+    check(len(launches) == per_round["persistent_matmul"],
+          f"registered round: {len(launches)} traced matmuls, {per_round['persistent_matmul']} "
+          f"launches")
+    for (m, k), n, dtype, held, trace in launches:
+        check(held == (gn, 0), f"a matmul {m}x{k}x{n} ran on SMs {held}, not the GN={gn} "
+              f"from SM 0 the service holds")
+        g = tile_grid(m, k, n, dtype, gn)
+        hits = trace.tile_hits.cpu()
+        check(trace.tiles_done == g.units == hits.numel() and bool((hits == 1).all()),
+              f"registered matmul {m}x{k}x{n}: {trace.tiles_done} of {g.units} units done")
+        owner = torch.tensor([trace.allowed_sms[u // (2 * g.per_lane)] for u in range(g.units)],
+                             dtype=torch.int32)
+        check(len(trace.allowed_sms) == gn and torch.equal(trace.tile_sm.cpu(), owner),
+              f"registered matmul {m}x{k}x{n}: a unit ran off the {gn} allocated SMs")
+    return {"launches": counts, "shapes": len({(s, n, d) for s, n, d, _, _ in launches})}
+
+
+def profiled_round(engine, prompt) -> list[float]:
+    """One round through ``generate`` with each decode step in a profiler
+    window of its own (``profiled_ms``): each step's device-busy ms."""
+    from repro_torch.serving.engine import profiled_ms
+
+    model, steps = engine.model, []
+    decode_step = model.decode_step
+
+    def profiled(*args):
+        out, ms = profiled_ms(decode_step, *args)
+        steps.append(ms)
+        return out
+
+    with mock.patch.object(model, "decode_step", profiled):
+        engine.generate(prompt, max_new_tokens=NEW_TOKENS)
+    check(len(steps) == NEW_TOKENS and all(steps),
+          f"profiled round: {len(steps)} decode steps with device time, {NEW_TOKENS} run")
+    return steps
+
+
+def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
+    """Admission on the card through the engine's front door.  The engine
+    measures the decode step of the prompt's shape at several SM counts
+    (``engine.calibrate``); the deadline is the job's R̂ on a third of the
+    SMs from that calibration, so 1 < GN < all.  ``engine.rt_register``
+    admits the measured task on a port AdmissionController over the card's
+    SMs, measuring each granted GN that is not a measured count and asking
+    again.  The fit's prediction is held out: t(GN) against GR̂(GN) from
+    the fit without GN's points.  Then three rounds through ``generate``,
+    registered: traced (every matmul on the GN SMs), plain (the wall per
+    step), profiled (each decode step's device-busy time, held to GR̂(GN))."""
+    from repro_torch.runtime import AdmissionController, ServingTaskSpec
+    from repro_torch.runtime.task_spec import job_response_ms
+    from repro_torch.serving.engine import CALIBRATION_STEPS
+
+    t_phase = time.perf_counter()
+    name = f"chat-{cfg.name}"
+    # the analysis stops at the deadline, so R^ is read under a deadline far past it
+    spec = ServingTaskSpec(name=name, arch_id=cfg.name, period_ms=2e9, deadline_ms=1e9,
+                           batch=BATCH, seq_len=PROMPT, new_tokens=NEW_TOKENS,
+                           dominant="memory_s", vocab=cfg.vocab)
+    cal = engine.calibrate(spec)
+    calibrated = sorted(cal.measured)
+    print_calibration(name, cal.measured, calibrated)
+    target = n_sms // 3
+    deadline = math.ceil(job_response_ms(cal.task(spec), target) * 1e3) / 1e3
+    spec = dataclasses.replace(spec, deadline_ms=deadline, period_ms=2 * deadline)
+    print(f"[rt] {name}: deadline {deadline:.3f} ms, the job's R^ on {target} of {n_sms} SMs "
+          f"(calibration fit), period {2 * deadline:.3f} ms")
+    ac = AdmissionController(gn_total=n_sms)
+    t0 = time.perf_counter()
+    dec = engine.rt_register(ac, spec)
+    register_s = time.perf_counter() - t0
+    check(dec.admitted, f"{name}: not admitted ({dec.reason})")
+    print_calibration(name, cal.measured, sorted(set(cal.measured) - set(calibrated)),
+                      " (granted, then measured)")
+    gn = dec.alloc[name]
+    check(engine.sm_range == (gn, 0), f"{name}: holds SMs {engine.sm_range}, granted {gn}")
+    check(1 < gn < n_sms, f"{name}: granted GN={gn}, not between 1 and {n_sms}")
+    task, fit = engine.rt_task, cal.fit()
+    check(task == cal.task(spec), f"{name}: the admitted task is not the calibration's")
+    t0 = time.perf_counter()
+    check(AdmissionController(gn_total=n_sms).admit(task).admitted, f"{name}: re-admission")
+    admit_ms = (time.perf_counter() - t0) * 1e3
     seg = task.gpu[0]
-    lo, hi = seg.response_bounds(2)
-    print(f"[rt] {task.name}: {task.n_gpu} GPU segments of GW=[{seg.work_lo:.4f}, "
-          f"{seg.work_hi:.4f}] ms, GL={seg.overhead_hi:.4f} ms, alpha={seg.alpha}; "
-          f"response on 2 virtual SMs [{lo:.4f}, {hi:.4f}] ms; "
-          f"utilization(2 vSMs) {task.utilization():.4f}")
-    return {"gpu_segment": vars(seg), "utilization": task.utilization()}
+    gr_hi = cal.gr_hi(spec, gn)
+    t_gn = max(cal.measured[gn]["device_ms"])
+    held_out = cal.gr_hi(spec, gn, held_out=True)
+    check(t_gn <= gr_hi, f"{name}: t({gn})={t_gn:.4f} ms > GR^ {gr_hi:.4f} ms")
+    check(t_gn <= held_out, f"{name}: the fit without {gn} SMs' points predicts GR^ "
+          f"{held_out:.4f} ms < the step measured there, {t_gn:.4f} ms")
+    job = next(t for t in dec.result.analysis.tasks if t.name == name)
+    wall_gw = decode_s * 1e3 * 2.0 * n_sms
+    print(f"[rt] {name}: fit of the device-busy decode step (largest of {CALIBRATION_STEPS}) "
+          f"t(m) <= A/m + L: " + ", ".join(
+              f"t({m})={max(cal.measured[m]['device_ms']):.4f}" for m in sorted(cal.measured))
+          + f" ms; A={fit.a_ms:.4f} ms*SM, L={fit.l_ms:.4f} ms")
+    print(f"[rt] {name}: GW={seg.work_hi:.4f} ms (2A + L), GL={seg.overhead_hi:.4f} ms, "
+          f"alpha={seg.alpha}, from device-busy time only (a wall-based GW, step "
+          f"{decode_s * 1e3:.4f} ms x 2 x {n_sms} SMs, would be {wall_gw:.4f} ms); CPU segment "
+          f"per decode token {task.cpu_hi[1]:.4f} ms, the largest wall of "
+          f"{CALIBRATION_STEPS * len(calibrated)} calibration steps {cal.host_ms:.4f} ms plus "
+          f"sampling")
+    print(f"[rt] {name}: admitted on GN={gn} of {n_sms} SMs (SMs 0..{gn - 1}); registration "
+          f"with its measurements {register_s:.1f} s, the controller's admission "
+          f"{admit_ms:.3f} ms; segment GR^ on {2 * gn} virtual SMs {gr_hi:.4f} ms; job R^ "
+          f"{job.response:.4f} ms (deadline {deadline:.3f}); prefill wall on GN "
+          f"{cal.measured[gn]['prefill_ms']:.3f} ms, outside the task model")
+    print(f"[rt] {name}: held out: t({gn})={t_gn:.4f} ms <= GR^({gn}) {held_out:.4f} ms from the "
+          f"fit without {gn} SMs' points ({t_gn / held_out:.3f})")
+
+    per_round = {k: v // ROUNDS for k, v in expected_launches(cfg).items()}
+    served = served_round(engine, prompt, gn, per_round)
+    print(f"[rt] {name}: registered round: launches {served['launches']}, every pinned matmul "
+          f"with n_bands={gn} and its work units on the {gn} allocated SMs "
+          f"({served['shapes']} shapes)")
+    _, plain = engine.generate(prompt, max_new_tokens=NEW_TOKENS)
+    busy = profiled_round(engine, prompt)
+    worst = max(busy)
+    check(worst <= gr_hi, f"{name}: a decode step on GN={gn} SMs kept the device busy "
+          f"{worst:.4f} ms > GR^ {gr_hi:.4f} ms")
+    print(f"[rt] {name}: later round on GN={gn} SMs: device-busy decode step mean "
+          f"{sum(busy) / len(busy):.4f}, largest {worst:.4f} ms <= "
+          f"GR^ {gr_hi:.4f} ms ({worst / gr_hi:.3f}); wall per step "
+          f"{plain['decode_s_per_tok'] * 1e3:.4f} ms beside the CPU segment's bound "
+          f"{task.cpu_hi[1]:.4f} ms")
+    check(engine.rt_deregister() and engine.sm_range is None, f"{name}: deregister failed")
+    seconds = time.perf_counter() - t_phase
+    print(f"[rt] {name}: phase {seconds:.1f} s")
+    return {"fit": dataclasses.asdict(fit),
+            "measured": {str(m): v for m, v in cal.measured.items()},
+            "host_step_ms": cal.host_ms, "gpu_segment": dataclasses.asdict(seg),
+            "wall_based_gw_ms": wall_gw, "deadline_ms": deadline, "period_ms": 2 * deadline,
+            "gn": gn, "register_s": register_s, "admit_ms": admit_ms, "gr_hi_ms": gr_hi,
+            "held_out_gr_hi_ms": held_out, "job_r_hat_ms": float(job.response),
+            "served": served, "plain_decode_ms": plain["decode_s_per_tok"] * 1e3,
+            "later_device_ms": busy, "worst_over_gr_hi": worst / gr_hi, "seconds": seconds}
 
 
 def run_path(cfg, kernels_phase, n_sms) -> dict:
@@ -876,7 +1041,7 @@ def run_path(cfg, kernels_phase, n_sms) -> dict:
     out = {"kernels": kernels_phase(cfg, n_sms), "main": phase_main_path(cfg)}
     engine, prompt = out["main"].pop("engine"), out["main"].pop("prompt")
     out["profile"] = phase_profile(engine, prompt)
-    out["rt"] = phase_rt(cfg, out["main"]["rounds"][-1]["decode_s_per_tok"])
+    out["rt"] = phase_rt(cfg, engine, prompt, n_sms, out["main"]["rounds"][-1]["decode_s_per_tok"])
     del engine
     gc.collect()
     torch.cuda.empty_cache()

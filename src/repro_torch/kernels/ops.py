@@ -6,10 +6,18 @@ model's [B, S, H, hd] layout and GQA itself.  A CPU tensor goes to the
 kernel's plain PyTorch version, a CUDA tensor to the kernel; there is no
 other fallback.  The TPU wrappers' divisibility rules do not apply: the
 CUDA kernels mask ragged edges.
+
+``on_sms(n, first)`` scopes the SMs the model's projections run on: inside
+it ``sm_range()`` is ``(n, first)``, and ``models.layers.dense`` passes it
+to every ``pinned_matmul`` as ``n_bands`` and ``first_sm``.  Only the
+pinned matmul honours it; flash attention, the scan, the plain ops and the
+MoE experts run on every SM.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Iterator, Optional
 
 import torch
 
@@ -18,7 +26,28 @@ from .persistent_matmul import persistent_matmul
 from .ref import matmul_ref, mha_flash_ref, selective_scan_ref
 from .selective_scan import selective_scan
 
-__all__ = ["pinned_matmul", "mha_flash", "mamba_scan"]
+__all__ = ["pinned_matmul", "mha_flash", "mamba_scan", "on_sms", "sm_range"]
+
+_SM_RANGE: contextvars.ContextVar[tuple[Optional[int], int]] = contextvars.ContextVar(
+    "sm_range", default=(None, 0))
+
+
+@contextlib.contextmanager
+def on_sms(n_bands: Optional[int], first_sm: int = 0) -> Iterator[None]:
+    """Inside the block, the model's pinned matmuls run on ``n_bands`` of
+    the card's SMs from the ``first_sm``-th on (all SMs if None): a task's
+    granted GN, at its place on the card."""
+    token = _SM_RANGE.set((n_bands, first_sm))
+    try:
+        yield
+    finally:
+        _SM_RANGE.reset(token)
+
+
+def sm_range() -> tuple[Optional[int], int]:
+    """``(n_bands, first_sm)`` set by the innermost :func:`on_sms`
+    (``(None, 0)``: all SMs)."""
+    return _SM_RANGE.get()
 
 
 def _pick_block(n: int, target: int) -> int:
@@ -29,12 +58,13 @@ def _pick_block(n: int, target: int) -> int:
     return max(b, 1)
 
 
-def pinned_matmul(x: torch.Tensor, w: torch.Tensor, *,
-                  n_bands: Optional[int] = None) -> torch.Tensor:
-    """x [M, K] @ w [K, N] on the task's ``n_bands`` SMs (all SMs if None)."""
+def pinned_matmul(x: torch.Tensor, w: torch.Tensor, *, n_bands: Optional[int] = None,
+                  first_sm: int = 0) -> torch.Tensor:
+    """x [M, K] @ w [K, N] on the task's ``n_bands`` SMs from the
+    ``first_sm``-th on (all SMs if None)."""
     if x.device.type == "cpu":
         return matmul_ref(x, w)
-    return persistent_matmul(x, w, n_bands)
+    return persistent_matmul(x, w, n_bands, first_sm)
 
 
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -19,8 +19,10 @@ function of the shape alone, so results stay bit-identical for every band
 count); each unit writes a float32 partial to a workspace, and the last
 unit of a tile to arrive sums the partials in slice order.
 
-The allocated SMs are the first ``n_bands`` SM ids the card reports, found
-once per device by a probe kernel (SM ids need not be contiguous).
+The allocated SMs are ``n_bands`` consecutive SM ids of those the card
+reports, from the ``first_sm``-th on (0 by default), found once per device
+by a probe kernel (SM ids need not be contiguous).  Tasks given disjoint
+ranges run their matmuls on disjoint SMs.
 """
 from __future__ import annotations
 
@@ -186,7 +188,7 @@ class TileTrace:
 
 
 _SM_IDS: dict[int, tuple[int, ...]] = {}
-_BAND_TABLES: dict[tuple[int, int], torch.Tensor] = {}
+_BAND_TABLES: dict[tuple[int, int, int], torch.Tensor] = {}
 
 
 @functools.cache
@@ -222,21 +224,21 @@ def sm_ids(device: torch.device) -> tuple[int, ...]:
     return ids
 
 
-def _band_table(device: torch.device, n_bands: int) -> torch.Tensor:
+def _band_table(device: torch.device, first_sm: int, n_bands: int) -> torch.Tensor:
     """int32 table: %smid -> band of that SM, -1 for SMs not allocated."""
     index = device.index
-    table = _BAND_TABLES.get((index, n_bands))
+    table = _BAND_TABLES.get((index, first_sm, n_bands))
     if table is None:
         ids = sm_ids(device)
         host = torch.full((max(ids) + 1,), -1, dtype=torch.int32)
-        for band, sm in enumerate(ids[:n_bands]):
+        for band, sm in enumerate(ids[first_sm:first_sm + n_bands]):
             host[sm] = band
         table = host.to(device)
-        _BAND_TABLES[(index, n_bands)] = table
+        _BAND_TABLES[(index, first_sm, n_bands)] = table
     return table
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, n_bands: Optional[int],
+def _launch(x: torch.Tensor, w: torch.Tensor, n_bands: Optional[int], first_sm: int,
             traced: bool) -> tuple[torch.Tensor, Optional[TileTrace]]:
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError("persistent_matmul needs x and w on one CUDA device")
@@ -252,16 +254,17 @@ def _launch(x: torch.Tensor, w: torch.Tensor, n_bands: Optional[int],
         raise ValueError("persistent_matmul indexes rows with 32-bit ints")
     dev = x.device
     ids = sm_ids(dev)
-    n_bands = len(ids) if n_bands is None else n_bands
-    if not 1 <= n_bands <= len(ids):
-        raise ValueError(f"n_bands={n_bands} outside 1..{len(ids)} SMs")
+    n_bands = len(ids) - first_sm if n_bands is None else n_bands
+    if first_sm < 0 or n_bands < 1 or first_sm + n_bands > len(ids):
+        raise ValueError(f"SMs {first_sm}..{first_sm + n_bands - 1} outside the card's "
+                         f"0..{len(ids) - 1}")
     g = tile_grid(m, k, n, x.dtype, n_bands)
     if g.block_m == WGMMA_TILE:
         # TMA reads from 16-byte aligned bases: a misaligned operand is
         # copied, never sent to another variant
         x = x if x.data_ptr() % 16 == 0 else x.clone()
         w = w if w.data_ptr() % 16 == 0 else w.clone()
-    table = _band_table(dev, n_bands)
+    table = _band_table(dev, first_sm, n_bands)
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     split = g.n_slices > 1
     # lane counters, the finished-unit count, then one arrival count per tile
@@ -293,22 +296,23 @@ def _launch(x: torch.Tensor, w: torch.Tensor, n_bands: Optional[int],
     if not traced:
         return out, None
     trace = TileTrace(tile_sm, tile_hits, int(counters[n_bands].item()),
-                      tuple(ids[:n_bands]))
+                      tuple(ids[first_sm:first_sm + n_bands]))
     return out, trace
 
 
 def persistent_matmul(x: torch.Tensor, w: torch.Tensor,
-                      n_bands: Optional[int] = None) -> torch.Tensor:
-    """x [M, K] @ w [K, N] on the card's first ``n_bands`` SMs (all if None),
-    two interleaved lanes per SM, float32 accumulation, output in x.dtype."""
-    return _launch(x, w, n_bands, traced=False)[0]
+                      n_bands: Optional[int] = None, first_sm: int = 0) -> torch.Tensor:
+    """x [M, K] @ w [K, N] on ``n_bands`` of the card's SMs from the
+    ``first_sm``-th on (all the rest if None), two interleaved lanes per SM,
+    float32 accumulation, output in x.dtype."""
+    return _launch(x, w, n_bands, first_sm, traced=False)[0]
 
 
 persistent_matmul.launches = 0
 
 
 def persistent_matmul_traced(x: torch.Tensor, w: torch.Tensor,
-                             n_bands: Optional[int] = None):
+                             n_bands: Optional[int] = None, first_sm: int = 0):
     """As :func:`persistent_matmul`, also returning a :class:`TileTrace`
     over work units (synchronises to read the finished-unit count)."""
-    return _launch(x, w, n_bands, traced=True)
+    return _launch(x, w, n_bands, first_sm, traced=True)

@@ -44,9 +44,12 @@ def init_dense(w: torch.Tensor, gen: torch.Generator,
 
 
 def dense(x: torch.Tensor, w: torch.Tensor):
-    """x [..., d_in] @ w [d_in, d_out] through the pinned matmul (all SMs)."""
+    """x [..., d_in] @ w [d_in, d_out] through the pinned matmul, on the SMs
+    of the enclosing ``ops.on_sms`` (all SMs outside one)."""
     lead = x.shape[:-1]
-    y = ops.pinned_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
+    n_bands, first_sm = ops.sm_range()
+    y = ops.pinned_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
+                          n_bands=n_bands, first_sm=first_sm)
     return y.reshape(*lead, w.shape[1])
 
 

@@ -13,19 +13,33 @@ RTGPU task:
                    GL = collective+dispatch critical path, α from the
                    step's dominant-resource kernel type (Fig. 6 table).
 
-On the card, ``roofline_step_s`` is the decode step the serving engine
-measured with CUDA events.  Without it the step falls back to a bound on
-reading the logits, at ``hbm_bw`` bytes/s.
+``serving_task_to_rt`` keeps the reference's arithmetic (its tests hold
+it to the JAX function): ``roofline_step_s`` is one step's time, and
+without it the step falls back to a bound on reading the logits, at
+``hbm_bw`` bytes/s.  It takes the whole step as GPU work, host time
+included.
+
+:func:`measured_task_to_rt` builds the task from the card instead: the
+GPU segment from the device-busy decode step measured at several SM
+counts and fitted by :func:`fit_step` (Fig. 4's t(m) = (C−L)/m + L), the
+host's wall per step added to each decode token's CPU segment.  A
+:class:`DecodeCalibration` holds those measurements for one prompt shape;
+``ServingEngine.rt_register`` takes them on the card and admits the task
+they give.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
-from repro_torch.core import INTERLEAVE_RATIO_MAX, GpuSegment, RTTask
+import numpy as np
+
+from repro_torch.core import (INTERLEAVE_RATIO_MAX, GpuSegment, RTTask, TaskSet,
+                              analyze_rtgpu_plus)
 from repro_torch.roofline import HBM_BW
 
-__all__ = ["ServingTaskSpec", "serving_task_to_rt"]
+__all__ = ["ServingTaskSpec", "serving_task_to_rt", "StepFit", "fit_step",
+           "measured_task_to_rt", "DecodeCalibration", "job_response_ms"]
 
 PCIE_BW = 16e9          # bytes/s host<->device
 HOST_TOKENIZE_US_PER_TOK = 0.3
@@ -103,3 +117,88 @@ def serving_task_to_rt(spec: ServingTaskSpec, hbm_bw: float = HBM_BW) -> RTTask:
         copies=2,
         name=spec.name,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class StepFit:
+    """Upper envelope t(m) <= a_ms / m + l_ms of the device-busy decode
+    step t(m), in ms, measured on m SMs (``sms``, ``device_ms``)."""
+
+    sms: tuple[int, ...]
+    device_ms: tuple[float, ...]
+    a_ms: float
+    l_ms: float
+
+
+def fit_step(sms: Sequence[int], device_ms: Sequence[float]) -> StepFit:
+    """Fit Fig. 4's t(m) = A/m + L to the device-busy step at three or more
+    SM counts, then raise L until the curve bounds every measured point.
+
+    Least squares in 1/m gives the slope A (clamped at 0: a step that does
+    not shrink with more SMs has no parallel part); L is the least value
+    with t(m) <= A/m + L at every m."""
+    sms = tuple(int(m) for m in sms)
+    t = np.asarray(device_ms, dtype=np.float64)
+    if len(set(sms)) < 3 or len(sms) != len(t):
+        raise ValueError(f"need the step at three or more SM counts, got {sms}")
+    inv = 1.0 / np.asarray(sms, dtype=np.float64)
+    a = max(float(np.polyfit(inv, t, 1)[0]), 0.0)
+    l_ms = max(float(np.max(t - a * inv)), 0.0)
+    return StepFit(sms, tuple(float(x) for x in t), a, l_ms)
+
+
+def measured_task_to_rt(spec: ServingTaskSpec, fit: StepFit, host_step_ms: float) -> RTTask:
+    """The serving job's task from measurements on the card.
+
+    GPU segment per decode token: GL̂ = L and GŴ = 2A + L from ``fit``, so
+    that Lemma 5.1's GR̂ on 2m virtual SMs, (GŴα − GL̂)/2m + GL̂ =
+    Aα/m + L(α−1)/2m + L, is at least the envelope A/m + L >= t(m) at every
+    measured m (α >= 1).  CPU segment per decode token: sampling's
+    estimate plus ``host_step_ms``, the host's wall per step (the largest
+    measured).  Prefill's CPU segment, the memory copies, α and the
+    deadline and period are ``serving_task_to_rt``'s."""
+    base = serving_task_to_rt(spec)
+    gw_ms = 2.0 * fit.a_ms + fit.l_ms
+    v = spec.variability
+    gpu = tuple(dataclasses.replace(seg, work_lo=gw_ms * (1 - v), work_hi=gw_ms,
+                                    overhead_hi=fit.l_ms) for seg in base.gpu)
+    cpu_hi = base.cpu_hi[:1] + tuple(c + host_step_ms for c in base.cpu_hi[1:])
+    return dataclasses.replace(base, cpu_lo=tuple(c * (1 - v) for c in cpu_hi),
+                               cpu_hi=cpu_hi, gpu=gpu)
+
+
+@dataclasses.dataclass
+class DecodeCalibration:
+    """The decode step of one prompt shape ([batch, seq_len]) measured on
+    the card.  ``measured[m]`` holds, with the pinned matmuls on m SMs, the
+    prefill's wall (``prefill_ms``) and each decode step's device-busy time
+    and wall (``device_ms``, ``wall_ms``), in ms.  ``host_ms`` is the
+    largest step wall of the first measurement, fixed from then on."""
+
+    batch: int
+    seq_len: int
+    measured: dict[int, dict]
+    host_ms: float
+
+    def fit(self, without: Optional[int] = None) -> StepFit:
+        """The fit of each m's largest device-busy step, leaving out the
+        points of ``without`` if given."""
+        sms = sorted(m for m in self.measured if m != without)
+        return fit_step(sms, [max(self.measured[m]["device_ms"]) for m in sms])
+
+    def task(self, spec: ServingTaskSpec, without: Optional[int] = None) -> RTTask:
+        """``spec``'s task from these measurements (:func:`measured_task_to_rt`)."""
+        return measured_task_to_rt(spec, self.fit(without), self.host_ms)
+
+    def gr_hi(self, spec: ServingTaskSpec, m: int, held_out: bool = False) -> float:
+        """The GPU segment's GR̂ on m SMs (2m virtual SMs), in ms; with
+        ``held_out``, from the fit without m's own points: the model's
+        prediction at a count it was not fitted on."""
+        task = self.task(spec, without=m if held_out else None)
+        return task.gpu[0].response_bounds(2 * m)[1]
+
+
+def job_response_ms(task: RTTask, gn: int) -> float:
+    """The whole job's R̂ alone on ``gn`` SMs, in ms (inf past its
+    deadline, where the analysis stops)."""
+    return float(analyze_rtgpu_plus(TaskSet((task,)), [gn]).tasks[0].response)

@@ -2,7 +2,10 @@
 and samplers, usable standalone or under an RT admission controller.
 
 Counterpart of ``repro.serving.engine``.  Steps are timed with CUDA events
-on the card and with ``perf_counter`` on the CPU.
+on the card and with ``perf_counter`` on the CPU.  On the card an engine
+asks for admission with a task measured there (:meth:`ServingEngine.
+rt_register`), and once admitted runs its prefill and decode matmuls on the
+GN SMs it holds (``ops.on_sms``).
 """
 from __future__ import annotations
 
@@ -12,11 +15,24 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.kernels import ops
 from repro_torch.models import Model, ModelConfig
-from repro_torch.runtime.task_spec import serving_task_to_rt
+from repro_torch.runtime.admission import AdmissionDecision
+from repro_torch.runtime.task_spec import DecodeCalibration, serving_task_to_rt
 
-__all__ = ["ServeConfig", "ServingEngine", "sample_greedy", "sample_topk"]
+__all__ = ["ServeConfig", "ServingEngine", "calibration_sms", "device_busy_ms",
+           "profiled_ms", "sample_greedy", "sample_topk"]
+
+CALIBRATION_STEPS = 6   # decode steps timed, and as many profiled, at each SM count
+READMITS = 10           # admissions tried until the granted GN is a measured count
+
+
+def calibration_sms(n_sms: int) -> tuple[int, ...]:
+    """The SM counts the decode step is first measured on: eighths of the
+    card to all of it."""
+    return tuple(sorted({n_sms // 8, n_sms // 4, n_sms // 2, 3 * n_sms // 4, n_sms}))
 
 
 def sample_greedy(generator: Optional[torch.Generator], logits: torch.Tensor):
@@ -79,15 +95,18 @@ class ServingEngine:
     without it the weights are random from ``seed``.  Optionally registers
     with an online scheduler: ``rt_register`` asks a controller (anything
     with ``admit``; clocked controllers also have ``job_boundary``) to
-    admit this engine's periodic decode service, converted to an RTGPU task
-    by ``repro_torch.runtime.task_spec``, and ``rt_deregister`` departs.
+    admit this engine's periodic decode service as an RTGPU task, and
+    ``rt_deregister`` departs.  While admitted, ``sm_range`` is the
+    (GN, first SM) the service holds now, and ``generate`` runs every
+    pinned matmul there; otherwise it is None (all SMs).
     """
 
     def __init__(self, cfg: ModelConfig, serve: ServeConfig, params=None,
                  seed: int = 0, device="cuda"):
         self.cfg = cfg
         self.serve = serve
-        self._rt = None            # (controller, service name) when admitted
+        self._rt = None            # (controller, service name, task) when admitted
+        self.rt_calibration: Optional[DecodeCalibration] = None
         self.model = Model(cfg, device=device)
         if params is None:
             self.model.init_params(seed)
@@ -99,23 +118,62 @@ class ServingEngine:
     # ---- online-scheduler registration --------------------------------------
 
     def rt_register(self, controller, spec, t: float = 0.0):
-        """Admit this engine as an RT service on ``controller``.  Returns
-        the controller's decision; on success the engine remembers its
-        registration for :meth:`rt_deregister`."""
-        task = serving_task_to_rt(spec)
+        """Admit this engine's periodic decode service on ``controller``
+        under ``spec.name``; returns the last decision.
+
+        On the card the task is measured (:meth:`calibrate`, once per
+        prompt shape), and after each admission the granted GN is measured
+        too: while GN is not one of the measured counts, the service
+        departs, the task is refitted with GN's points and asks again.  So
+        the certified GR̂(GN) bounds the device-busy step measured on GN
+        SMs.  On the CPU, which has no SMs to measure, the task is
+        ``serving_task_to_rt(spec)``.
+
+        One card is one host: a multi-host front door is refused, since
+        its allocation does not say which services share this card."""
+        if getattr(controller, "hosts", 1) != 1:
+            raise ValueError("register with the front door of this card's host alone")
+        if self.device.type != "cuda":
+            return self._admit(controller, spec.name, serving_task_to_rt(spec), t)
+        cal = self.rt_calibration
+        if cal is None or (cal.batch, cal.seq_len) != (spec.batch, spec.seq_len):
+            cal = self.calibrate(spec)
+        for _ in range(READMITS):
+            dec = self._admit(controller, spec.name, cal.task(spec), t)
+            if not dec.admitted or dec.alloc[spec.name] in cal.measured:
+                return dec
+            gn = dec.alloc[spec.name]
+            self.rt_deregister(t)
+            cal.measured.update(self.measure_decode(_prompts(spec, self.cfg.vocab), (gn,)))
+        return AdmissionDecision(False, None, reason=f"the granted GN was not a measured SM "
+                                 f"count after {READMITS} admissions")
+
+    def _admit(self, controller, name: str, task, t: float):
         if hasattr(controller, "job_boundary"):   # online ctl/broker: clocked
             dec = controller.admit(task, t=t)
         else:                                     # static wrapper front door
             dec = controller.admit(task)
         if dec.admitted:
-            self._rt = (controller, spec.name)
+            self._rt = (controller, name, task)
         return dec
+
+    def calibrate(self, spec) -> DecodeCalibration:
+        """Measure the decode step of ``spec``'s prompt shape (random
+        tokens from a fixed seed) on the card at the
+        :func:`calibration_sms` of its SM count; kept as
+        ``rt_calibration``, which :meth:`rt_register` reuses."""
+        sms = calibration_sms(torch.cuda.get_device_properties(
+            self.device).multi_processor_count)
+        meas = self.measure_decode(_prompts(spec, self.cfg.vocab), sms)
+        host_ms = max(w for row in meas.values() for w in row["wall_ms"])
+        self.rt_calibration = DecodeCalibration(spec.batch, spec.seq_len, meas, host_ms)
+        return self.rt_calibration
 
     def rt_deregister(self, t: float = 0.0) -> bool:
         """Depart from the scheduler (job-boundary reclamation)."""
         if self._rt is None:
             return False
-        controller, name = self._rt
+        controller, name, _ = self._rt
         self._rt = None
         if hasattr(controller, "release"):
             return controller.release(name, t=t)
@@ -124,6 +182,34 @@ class ServingEngine:
     @property
     def rt_registered(self) -> bool:
         return self._rt is not None
+
+    @property
+    def rt_task(self):
+        """The task admitted for this service (None when not admitted)."""
+        return None if self._rt is None else self._rt[2]
+
+    @property
+    def sm_range(self) -> Optional[tuple[int, int]]:
+        """(GN, first SM) the service holds now; None when not admitted.
+
+        The services of one front door hold consecutive, disjoint ranges
+        of the card, in the order of the controller's allocation table.
+        ``generate`` reads it once, at the start of each job, so a later
+        admission's re-balance takes effect at this service's next job."""
+        if self._rt is None:
+            return None
+        controller, name, _ = self._rt
+        alloc = controller.allocation
+        first = 0
+        for other, gn in alloc.items():
+            if other == name:
+                break
+            first += gn
+        if first + alloc[name] > controller.gn_total:
+            raise RuntimeError(f"{name}: SMs {first}..{first + alloc[name] - 1} past the "
+                               f"{controller.gn_total} of the card: only federated "
+                               f"(disjoint) allocations map onto the card's SMs")
+        return alloc[name], first
 
     @torch.inference_mode()
     def generate(
@@ -141,22 +227,23 @@ class ServingEngine:
         caches = model.init_caches(b, self.serve.max_context)
         tokens = torch.as_tensor(prompts, dtype=torch.int32, device=self.device)
 
-        prefill_t = _StepTimer(self.device)
-        prefill_t.start()
-        logits, caches = model.prefill(tokens, caches)
-        prefill_t.stop()
-
         out = np.zeros((b, max_new_tokens), np.int32)
-        cache_len = torch.full((b,), s, dtype=torch.int32, device=self.device)
-        tok = self._sample(generator, logits[:, -1, :])[:, None]
-        decode_t = _StepTimer(self.device)
-        for i in range(max_new_tokens):
-            out[:, i] = tok[:, 0].cpu().numpy()
-            decode_t.start()
-            logits, caches = model.decode_step(tok, caches, cache_len)
-            decode_t.stop()
-            cache_len = cache_len + 1
+        prefill_t, decode_t = _StepTimer(self.device), _StepTimer(self.device)
+        n_bands, first_sm = self.sm_range or (None, 0)
+        with ops.on_sms(n_bands, first_sm):
+            prefill_t.start()
+            logits, caches = model.prefill(tokens, caches)
+            prefill_t.stop()
+
+            cache_len = torch.full((b,), s, dtype=torch.int32, device=self.device)
             tok = self._sample(generator, logits[:, -1, :])[:, None]
+            for i in range(max_new_tokens):
+                out[:, i] = tok[:, 0].cpu().numpy()
+                decode_t.start()
+                logits, caches = model.decode_step(tok, caches, cache_len)
+                decode_t.stop()
+                cache_len = cache_len + 1
+                tok = self._sample(generator, logits[:, -1, :])[:, None]
         decode_s = decode_t.seconds()
         stats = {
             "prefill_s": prefill_t.seconds()[0],
@@ -164,3 +251,79 @@ class ServingEngine:
             "tokens": b * max_new_tokens,
         }
         return out, stats
+
+    @torch.inference_mode()
+    def measure_decode(self, prompts: np.ndarray, sms) -> dict:
+        """The prefill's wall and each decode step's device-busy time and
+        wall, in ms, with the pinned matmuls on m SMs, for each m in
+        ``sms``: ``{m: {"prefill_ms": x, "device_ms": [...], "wall_ms":
+        [...]}}``.  On the card only.
+
+        After one prefill of ``prompts``, ``CALIBRATION_STEPS`` decode
+        steps are timed on the host clock with a synchronise on both sides
+        (the host's issue plus the device's tail: an upper bound on the
+        host's share), then as many more each in a profiler window of its
+        own (:func:`profiled_ms`)."""
+        if self.device.type != "cuda":
+            raise RuntimeError("measuring the decode step needs the card")
+
+        b, s = prompts.shape
+        steps = CALIBRATION_STEPS
+        if s + 2 * steps + 1 > self.serve.max_context:
+            raise ValueError("prompt + measured steps exceed max_context")
+        model = self.model
+        tokens = torch.as_tensor(prompts, dtype=torch.int32, device=self.device)
+        out = {}
+        for m in sms:
+            with ops.on_sms(m):
+                caches = model.init_caches(b, self.serve.max_context)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches = model.prefill(tokens, caches)
+                torch.cuda.synchronize()
+                prefill_ms = (time.perf_counter() - t0) * 1e3
+                tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                cache_len = torch.full((b,), s, dtype=torch.int32, device=self.device)
+                model.decode_step(tok, caches, cache_len)  # warm
+                wall, busy = [], []
+                for i in range(2 * steps):
+                    cache_len = cache_len + 1
+                    if i < steps:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        model.decode_step(tok, caches, cache_len)
+                        torch.cuda.synchronize()
+                        wall.append((time.perf_counter() - t0) * 1e3)
+                    else:
+                        busy.append(profiled_ms(model.decode_step, tok, caches, cache_len)[1])
+            if not all(busy):
+                raise RuntimeError(f"the profiler saw no device time on {m} SMs")
+            out[m] = {"prefill_ms": prefill_ms, "device_ms": busy, "wall_ms": wall}
+        return out
+
+
+def _prompts(spec, vocab: int) -> np.ndarray:
+    """Calibration prompts of ``spec``'s shape: random tokens, fixed seed."""
+    rng = np.random.default_rng(0)
+    return rng.integers(0, vocab, (spec.batch, spec.seq_len)).astype(np.int32)
+
+
+def profiled_ms(fn, *args):
+    """``fn(*args)`` in a ``torch.profiler`` window of its own, with a
+    synchronise on both sides (so the window holds its kernels and no
+    others): its result and its device-busy ms."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    return out, device_busy_ms(prof)
+
+
+def device_busy_ms(prof) -> float:
+    """Kernel time summed over a ``torch.profiler`` window, in ms."""
+    total_us = 0.0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            total_us += us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
+    return total_us / 1e3

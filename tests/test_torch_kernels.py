@@ -25,6 +25,7 @@ from repro_torch.kernels.persistent_matmul import (
     kernel_name,
     persistent_matmul,
     persistent_matmul_traced,
+    sm_ids,
     stage_rows,
     tile_grid,
     tile_of,
@@ -455,6 +456,31 @@ class TestOnCard:
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(outs[0].float(), ref.matmul_ref(x, w).float(),
                                    rtol=tol, atol=tol * 8)
+
+    @pytest.mark.parametrize("m,k,n,dtype", [(4, 1024, 3072, _BF16), (1024, 1024, 1024, _BF16),
+                                             (64, 256, 136, _F32)])
+    def test_sm_range_past_sm_zero(self, m, k, n, dtype):
+        """A range that starts past SM 0 (a second service's): every unit
+        once on the range's SMs, bit-identical to the same count from SM 0;
+        a range past the card is refused."""
+        self._need_card()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(dtype)
+        ids = sm_ids(x.device)
+        n_bands = len(ids) // 3
+        outs = []
+        for first in (0, n_bands, len(ids) - n_bands):
+            out, trace = persistent_matmul_traced(x, w, n_bands, first)
+            g = tile_grid(m, k, n, dtype, n_bands)
+            assert trace.allowed_sms == ids[first:first + n_bands]
+            assert trace.tiles_done == g.units and bool((trace.tile_hits == 1).all())
+            owner = [trace.allowed_sms[u // (2 * g.per_lane)] for u in range(g.units)]
+            assert trace.tile_sm.cpu().tolist() == owner
+            outs.append(out)
+        assert all(torch.equal(o, outs[0]) for o in outs)
+        with pytest.raises(ValueError):
+            persistent_matmul(x, w, n_bands, len(ids) - n_bands + 1)
 
     @pytest.mark.parametrize("m,k,n", [(100, 200, 136), (1000, 1000, 1032), (1024, 1024, 1024),
                                        (1024, 4096, 4096)])
