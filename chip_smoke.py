@@ -33,15 +33,24 @@ Runs from the repository root and imports only ``repro_torch`` (from
       prefill and eight decode steps (torch.profiler), with each pinned
       matmul variant's and the flash variant's launches in a prefill held
       to the shapes' choice;
-   d. admission: the decode step's device-busy time and wall measured at
-      five SM counts and fitted (t(m) <= A/m + L: GW = 2A + L, GL = L; the
-      host's wall goes into the CPU segments), the task admitted by a port
-      AdmissionController over the card's SMs (1 < GN < all), then rounds
-      through ``generate`` registered: every pinned matmul launch traced on
-      the GN SMs, and each decode step's device-busy time held to GR^(GN);
+   d. admission: the decode step's device-busy time, the prefill's wall
+      and whole jobs' walls measured at five SM counts, the step fitted
+      (t(m) <= A/m + L: GW = 2A + L, GL = L; the largest prefill wall goes
+      into the first CPU segment, the rest of the jobs' pWCET into the
+      decode CPU segments), the
+      task admitted by a port AdmissionController over the card's SMs
+      (1 < GN < all), then rounds through ``generate`` registered: every
+      pinned matmul launch traced on the GN SMs, and each decode step's
+      device-busy time held to GR^(GN);
+   e. engine: the admitted service alone under the port's
+      WallClockExecutor for ENGINE_JOBS whole jobs at its period (every
+      pinned matmul traced on the GN SMs), the port's BoundMonitor reading
+      each job's R against the certified R^ (no bound_violation, no
+      deadline_miss, every R <= R^), and the port's simulate over the
+      admitted set with no miss;
 4. jamba-v0.1-52b path, at full width cut to one period of 8 layers (the
    32 layers' 102.9 GB of bf16 weights exceed the card's 80 GB), after
-   the qwen engine is freed: the same four phases, with selective_scan
+   the qwen engine is freed: the same five phases, with selective_scan
    held to its plain version at the prefill chunk's shape (h0 none, zero
    and random; c in f32 and bf16) and at ragged shapes, and the pinned
    matmul checked (at every band count where K is split or the wgmma
@@ -84,6 +93,8 @@ SCAN_TOL = 1e-4          # rtol = atol, as tests/test_kernels.py: the same f32 F
 # plain path, and from a float32 run of the plain path, by at most this
 # many times the plain bf16 path's own relative L2 error against that run.
 LOGITS_NOISE_FACTOR = 2.0
+ENGINE_JOBS = 4      # whole jobs each cell's service runs under the executor
+SIM_PERIODS = 20     # the simulator's horizon, in periods of the service
 
 
 class SmokeFailure(Exception):
@@ -718,9 +729,7 @@ def phase_main_path(cfg) -> dict:
     prompts = [rng.integers(0, cfg.vocab, (BATCH, PROMPT)).astype(np.int32)
                for _ in range(ROUNDS)]
 
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = zeroed_counters()
     rounds = []
     for p in prompts:
         t1 = time.perf_counter()
@@ -864,34 +873,70 @@ def phase_profile(engine, prompt) -> dict:
 
 def print_calibration(name, meas: dict, sms, why: str = "") -> None:
     for m in sms:
-        dev, wall = meas[m]["device_ms"], meas[m]["wall_ms"]
+        dev, jobs = meas[m]["device_ms"], meas[m]["job_ms"]
         print(f"[rt] {name}: decode step on {m} SMs{why}: device busy "
-              f"{' '.join(f'{t:.4f}' for t in dev)} ms (largest {max(dev):.4f}); wall "
-              f"{' '.join(f'{t:.3f}' for t in wall)} ms; prefill wall "
-              f"{meas[m]['prefill_ms']:.3f} ms")
+              f"{' '.join(f'{t:.4f}' for t in dev)} ms (largest {max(dev):.4f}); prefill "
+              f"walls {' '.join(f'{t:.3f}' for t in meas[m]['prefill_ms'])} ms"
+              + (f"; whole job walls {' '.join(f'{t:.1f}' for t in jobs)} ms (largest "
+                 f"{max(jobs):.3f})" if jobs else ""))
 
 
-def served_round(engine, prompt, gn: int, per_round: dict) -> dict:
-    """One round through ``generate`` with the engine registered, every
-    pinned matmul launched traced: each launch must carry n_bands = GN from
-    SM 0 (the one service of its front door) and run every work unit once,
-    on one of the GN allocated SMs.  The kernels'
-    counts are set to 0 just before and read just after."""
-    import torch
+@contextlib.contextmanager
+def traced_matmuls(pool=None):
+    """Every pinned matmul launched inside is traced (into ``pool``, a
+    ``TracePool``, if given); yields the list of ((M, K), N, dtype,
+    (n_bands, first_sm), TileTrace) it fills.  The traces stay on the card
+    until :func:`check_on_gn` reads them."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.persistent_matmul import persistent_matmul_traced, tile_grid
+    from repro_torch.kernels.persistent_matmul import persistent_matmul_traced
 
     launches = []
 
     def traced(x, w, n_bands=None, first_sm=0):
-        got, trace = persistent_matmul_traced(x, w, n_bands, first_sm)
+        got, trace = persistent_matmul_traced(x, w, n_bands, first_sm, pool)
         launches.append((tuple(x.shape), w.shape[1], x.dtype, (n_bands, first_sm), trace))
         return got
 
+    with mock.patch.object(ops, "persistent_matmul", traced):
+        yield launches
+
+
+def check_on_gn(launches: list, gn: int, what: str) -> None:
+    """Each traced launch carried n_bands = GN from SM 0 (the one service of
+    its front door) and ran every work unit once, on one of the GN
+    allocated SMs."""
+    import torch
+    from repro_torch.kernels.persistent_matmul import tile_grid
+
+    for (m, k), n, dtype, held, trace in launches:
+        check(held == (gn, 0), f"{what}: a matmul {m}x{k}x{n} ran on SMs {held}, not the "
+              f"GN={gn} from SM 0 the service holds")
+        g = tile_grid(m, k, n, dtype, gn)
+        hits = trace.tile_hits.cpu()
+        check(trace.tiles_done == g.units == hits.numel() and bool((hits == 1).all()),
+              f"{what}: matmul {m}x{k}x{n}: {trace.tiles_done} of {g.units} units done")
+        owner = torch.tensor([trace.allowed_sms[u // (2 * g.per_lane)] for u in range(g.units)],
+                             dtype=torch.int32)
+        check(len(trace.allowed_sms) == gn and torch.equal(trace.tile_sm.cpu(), owner),
+              f"{what}: matmul {m}x{k}x{n}: a unit ran off the {gn} allocated SMs")
+
+
+def zeroed_counters() -> dict:
+    """The kernels' launch counters, each set to 0."""
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
-    with mock.patch.object(ops, "persistent_matmul", traced):
+    return counters
+
+
+def served_round(engine, prompt, gn: int, per_round: dict) -> dict:
+    """One round through ``generate`` with the engine registered, every
+    pinned matmul launched traced and held to the GN SMs (:func:`check_on_gn`).
+    The kernels' counts are set to 0 just before and read just after."""
+    import torch
+
+    counters = zeroed_counters()
+    with traced_matmuls() as launches:
         out, _ = engine.generate(prompt, max_new_tokens=NEW_TOKENS)
     counts = {name: fn.launches for name, fn in counters.items()}
     torch.cuda.synchronize()
@@ -900,17 +945,7 @@ def served_round(engine, prompt, gn: int, per_round: dict) -> dict:
     check(len(launches) == per_round["persistent_matmul"],
           f"registered round: {len(launches)} traced matmuls, {per_round['persistent_matmul']} "
           f"launches")
-    for (m, k), n, dtype, held, trace in launches:
-        check(held == (gn, 0), f"a matmul {m}x{k}x{n} ran on SMs {held}, not the GN={gn} "
-              f"from SM 0 the service holds")
-        g = tile_grid(m, k, n, dtype, gn)
-        hits = trace.tile_hits.cpu()
-        check(trace.tiles_done == g.units == hits.numel() and bool((hits == 1).all()),
-              f"registered matmul {m}x{k}x{n}: {trace.tiles_done} of {g.units} units done")
-        owner = torch.tensor([trace.allowed_sms[u // (2 * g.per_lane)] for u in range(g.units)],
-                             dtype=torch.int32)
-        check(len(trace.allowed_sms) == gn and torch.equal(trace.tile_sm.cpu(), owner),
-              f"registered matmul {m}x{k}x{n}: a unit ran off the {gn} allocated SMs")
+    check_on_gn(launches, gn, "registered round")
     return {"launches": counts, "shapes": len({(s, n, d) for s, n, d, _, _ in launches})}
 
 
@@ -936,8 +971,8 @@ def profiled_round(engine, prompt) -> list[float]:
 
 def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     """Admission on the card through the engine's front door.  The engine
-    measures the decode step of the prompt's shape at several SM counts
-    (``engine.calibrate``); the deadline is the job's R̂ on a third of the
+    measures the decode step and whole jobs of the prompt's shape at
+    several SM counts (``engine.calibrate``); the deadline is the job's R̂ on a third of the
     SMs from that calibration, so 1 < GN < all.  ``engine.rt_register``
     admits the measured task on a port AdmissionController over the card's
     SMs, measuring each granted GN that is not a measured count and asking
@@ -994,14 +1029,17 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     print(f"[rt] {name}: GW={seg.work_hi:.4f} ms (2A + L), GL={seg.overhead_hi:.4f} ms, "
           f"alpha={seg.alpha}, from device-busy time only (a wall-based GW, step "
           f"{decode_s * 1e3:.4f} ms x 2 x {n_sms} SMs, would be {wall_gw:.4f} ms); CPU segment "
-          f"per decode token {task.cpu_hi[1]:.4f} ms, the largest wall of "
-          f"{CALIBRATION_STEPS * len(calibrated)} calibration steps {cal.host_ms:.4f} ms plus "
-          f"sampling")
+          f"per decode token {task.cpu_hi[1]:.4f} ms: sampling plus {cal.host_step_ms():.4f} ms, "
+          f"1/{NEW_TOKENS} of the pWCET {cal.job_bound_ms():.3f} ms of {len(cal.job_ms)} "
+          f"calibration jobs (largest {max(cal.job_ms):.3f} ms) after the largest prefill wall")
     print(f"[rt] {name}: admitted on GN={gn} of {n_sms} SMs (SMs 0..{gn - 1}); registration "
           f"with its measurements {register_s:.1f} s, the controller's admission "
           f"{admit_ms:.3f} ms; segment GR^ on {2 * gn} virtual SMs {gr_hi:.4f} ms; job R^ "
           f"{job.response:.4f} ms (deadline {deadline:.3f}); prefill wall on GN "
-          f"{cal.measured[gn]['prefill_ms']:.3f} ms, outside the task model")
+          f"{max(cal.measured[gn]['prefill_ms']):.3f} ms (largest of "
+          f"{len(cal.measured[gn]['prefill_ms'])}) beside CPU segment 0 {task.cpu_hi[0]:.4f} ms "
+          f"(the largest prefill wall of every measured count, {cal.prefill_ms():.3f} ms, "
+          f"plus the tokenize estimate)")
     print(f"[rt] {name}: held out: t({gn})={t_gn:.4f} ms <= GR^({gn}) {held_out:.4f} ms from the "
           f"fit without {gn} SMs' points ({t_gn / held_out:.3f})")
 
@@ -1020,17 +1058,178 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
           f"GR^ {gr_hi:.4f} ms ({worst / gr_hi:.3f}); wall per step "
           f"{plain['decode_s_per_tok'] * 1e3:.4f} ms beside the CPU segment's bound "
           f"{task.cpu_hi[1]:.4f} ms")
+    executed = phase_engine(engine, ac, spec, prompt, gn, per_round)
     check(engine.rt_deregister() and engine.sm_range is None, f"{name}: deregister failed")
     seconds = time.perf_counter() - t_phase
     print(f"[rt] {name}: phase {seconds:.1f} s")
     return {"fit": dataclasses.asdict(fit),
             "measured": {str(m): v for m, v in cal.measured.items()},
-            "host_step_ms": cal.host_ms, "gpu_segment": dataclasses.asdict(seg),
+            "host_step_ms": cal.host_step_ms(), "calibration_job_ms": list(cal.job_ms),
+            "gpu_segment": dataclasses.asdict(seg),
             "wall_based_gw_ms": wall_gw, "deadline_ms": deadline, "period_ms": 2 * deadline,
             "gn": gn, "register_s": register_s, "admit_ms": admit_ms, "gr_hi_ms": gr_hi,
             "held_out_gr_hi_ms": held_out, "job_r_hat_ms": float(job.response),
             "served": served, "plain_decode_ms": plain["decode_s_per_tok"] * 1e3,
-            "later_device_ms": busy, "worst_over_gr_hi": worst / gr_hi, "seconds": seconds}
+            "later_device_ms": busy, "worst_over_gr_hi": worst / gr_hi,
+            "prefill_ms": cal.prefill_ms(), "cpu_segment0_ms": task.cpu_hi[0],
+            "engine": executed, "seconds": seconds}
+
+
+def round_units(cfg, gn: int) -> int:
+    """Work units of one round's pinned matmuls (a prefill and NEW_TOKENS
+    decode steps) on GN SMs."""
+    import torch
+    from repro_torch.kernels.persistent_matmul import tile_grid
+
+    return sum(calls // ROUNDS * tile_grid(m, k, n, getattr(torch, dt), gn).units
+               for (m, k, n, dt), calls in matmul_calls(cfg).items())
+
+
+def run_jobs(engine, spec, prompt, gn: int) -> dict:
+    """The registered service alone under the port's ``WallClockExecutor``
+    for ENGINE_JOBS jobs at its period, every pinned matmul traced
+    (:func:`traced_matmuls`) into a ``TracePool`` set up beforehand, so
+    tracing adds no allocation or fill to a job; the kernels' counts set to
+    0 just before and read just after.  The traces keep a few Python
+    objects a launch alive, so the run freezes the collector's view of
+    what lives before it (the model, the engine): a full collection in a
+    job then walks only what the jobs made.  Returns the executor's stats
+    and trace, the traced launches, each job's R (ms) and its own prefill
+    and mean decode step (CUDA events, ms) and the ms the collector ran in
+    it (host clock)."""
+    import torch
+    from repro_torch.kernels.persistent_matmul import TracePool
+    from repro_torch.runtime import WallClockExecutor
+    from repro_torch.sched import EventTrace
+
+    units = round_units(engine.cfg, gn)
+    pool = TracePool((ENGINE_JOBS + 1) * units, engine.device)
+
+    trace = EventTrace(us_per_unit=1e6, label=spec.name)
+    executor = WallClockExecutor([engine.rt_service(spec, prompt)], trace=trace)
+    walls, generate = [], engine.generate
+    collector = {"start": 0.0, "ms": 0.0}
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            collector["start"] = time.perf_counter()
+        else:
+            collector["ms"] += (time.perf_counter() - collector["start"]) * 1e3
+
+    def timed(*args, **kw):
+        collector["ms"] = 0.0
+        out, st = generate(*args, **kw)
+        walls.append((st["prefill_s"] * 1e3, st["decode_s_per_tok"] * 1e3, collector["ms"]))
+        return out, st
+
+    counters = zeroed_counters()
+    t0 = time.perf_counter()
+    gc.freeze()
+    gc.callbacks.append(on_gc)
+    try:
+        with traced_matmuls(pool) as launches, mock.patch.object(engine, "generate", timed):
+            stats = executor.run((ENGINE_JOBS - 0.5) * spec.period_ms / 1e3)[spec.name]
+    finally:
+        gc.callbacks.remove(on_gc)
+        gc.unfreeze()
+    counts = {k: fn.launches for k, fn in counters.items()}
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    responses = [dict(e.meta)["response_s"] * 1e3 for e in trace.events if e.kind == "complete"]
+    return {"stats": stats, "trace": trace, "launches": launches, "counts": counts,
+            "responses": responses, "walls": walls, "seconds": seconds,
+            "traced_units": (pool.used, units)}
+
+
+def phase_engine(engine, ac, spec, prompt, gn: int, per_round: dict) -> dict:
+    """The admitted service alone under the port's ``WallClockExecutor``:
+    ``ENGINE_JOBS`` whole jobs (one ``generate`` each: a prefill and
+    NEW_TOKENS decode steps), released every period, every pinned matmul
+    traced and held to the GN SMs, the kernels' counts set to 0 just before
+    and read just after.  The port's ``BoundMonitor`` then reads the run
+    (``executor_events``: each job's R in ms against the controller's
+    certified R^): no ``bound_violation`` and no ``deadline_miss``, and
+    every R <= R^.  Last, the port's ``simulate`` over the controller's
+    admitted set for SIM_PERIODS periods, seed 0, must miss nothing."""
+    from repro_torch.obs import BoundMonitor
+    from repro_torch.runtime import simulate
+    from repro_torch.runtime.task_spec import job_response_ms, measured_task_to_rt
+    from repro_torch.serving.engine import executor_events
+
+    name = spec.name
+    run = run_jobs(engine, spec, prompt, gn)
+    stats, trace, launches, counts = run["stats"], run["trace"], run["launches"], run["counts"]
+    responses, walls, seconds = run["responses"], run["walls"], run["seconds"]
+    used, units = run["traced_units"]
+    r_hat, held = engine.rt_bound
+    # R^ with the host's part at the largest calibration job, not its pWCET:
+    # what the extrapolation carries
+    cal = engine.rt_calibration
+    largest = max(cal.job_ms)
+    r_hat_largest = job_response_ms(measured_task_to_rt(
+        spec, cal.fit(), max(largest - cal.prefill_ms(), 0.0) / NEW_TOKENS, cal.prefill_ms()), gn)
+    for i, (r, (pre, step, gc_ms)) in enumerate(zip(responses, walls)):
+        print(f"[engine] {name}: job {i}: R {r:.3f} ms {'<=' if r <= r_hat else '>'} R^ "
+              f"{r_hat:.3f} ms (D {spec.deadline_ms:.3f} ms), headroom {1 - r / r_hat:.4f}; "
+              f"R^ at the largest of {len(cal.job_ms)} calibration jobs ({largest:.3f} ms) "
+              f"instead of their pWCET ({cal.job_bound_ms():.3f} ms) {r_hat_largest:.3f} ms, "
+              f"headroom {1 - r / r_hat_largest:.4f}; prefill {pre:.3f} ms, decode {step:.3f} "
+              f"ms/step (CUDA events); the collector ran {gc_ms:.1f} ms")
+    jobs = stats["completed"]
+    check(stats["released"] == jobs >= ENGINE_JOBS,
+          f"{name}: the executor released {stats['released']} jobs and completed {jobs}, "
+          f"{ENGINE_JOBS} asked")
+    want = {k: v * jobs for k, v in per_round.items()}
+    check(counts == want, f"{name}: executor jobs launched {counts}, the path gives {want}")
+    check(len(launches) == counts["persistent_matmul"] and used == jobs * units,
+          f"{name}: {len(launches)} traced matmuls, {counts['persistent_matmul']} launches, "
+          f"{used} traced units, {jobs} x {units} expected")
+    check_on_gn(launches, gn, f"{name} executor job")
+
+    check(held == gn, f"{name}: holds GN={held} under the executor, granted {gn}")
+    monitor = BoundMonitor().feed(executor_events(trace, {name: engine.rt_bound}))
+    health, alerts = monitor.tasks[name], monitor.alert_counts()
+    check(health.jobs == jobs == len(responses) and health.bound == r_hat,
+          f"{name}: the monitor read {health.jobs} jobs against R^ {health.bound}")
+    check(not alerts.get("bound_violation") and not alerts.get("deadline_miss"),
+          f"{name}: the monitor raised {alerts}")
+    check(max(responses) <= r_hat, f"{name}: observed R {max(responses):.3f} ms > R^ "
+          f"{r_hat:.3f} ms")
+    task = engine.rt_task
+    prefill_gn = max(engine.rt_calibration.measured[gn]["prefill_ms"])
+    print(f"[engine] {name}: {jobs} jobs on SMs 0..{gn - 1} in {seconds:.1f} s, period "
+          f"{spec.period_ms:.3f} ms; monitor: min headroom {health.min_headroom:.4f}, worst R "
+          f"{health.worst_response:.3f} ms, alerts {alerts or 'none'}; launches {counts}, every "
+          f"pinned matmul on the {gn} SMs; prefill wall on GN {prefill_gn:.3f} ms beside CPU "
+          f"segment 0 {task.cpu_hi[0]:.4f} ms")
+
+    ts, alloc = ac.current_taskset(), ac.current_alloc_list()
+    horizon = SIM_PERIODS * spec.period_ms
+    sims = {case: simulate(ts, alloc, horizon=horizon, seed=0, worst_case=case == "at bounds")
+            for case in ("sampled", "at bounds")}
+    i = [t.name for t in ts].index(name)
+    for case, sim in sims.items():
+        check(not sim.any_miss, f"{name}: the simulator ({case}) missed {sim.misses}")
+        # sporadic releases: the first within a period, each gap up to 1.2 periods
+        check(sim.jobs[i] >= SIM_PERIODS // 2, f"{name}: the simulator ({case}) ran "
+              f"{sim.jobs[i]} jobs in {SIM_PERIODS} periods")
+    worst = {case: {t.name: sim.max_response(j) for j, t in enumerate(ts)}
+             for case, sim in sims.items()}
+    print(f"[engine] {name}: simulate over the admitted set {alloc}, {horizon:.0f} ms "
+          f"({SIM_PERIODS} periods), seed 0: {sims['sampled'].jobs[i]} and "
+          f"{sims['at bounds'].jobs[i]} jobs, no miss; worst response {name} "
+          f"{worst['sampled'][name]:.3f} ms (segments sampled), "
+          f"{worst['at bounds'][name]:.3f} ms (segments at their bounds), against the card's "
+          f"worst R {max(responses):.3f} ms and R^ {r_hat:.3f} ms")
+    return {"jobs": jobs, "responses_ms": responses, "r_hat_ms": r_hat,
+            "largest_calibration_job_ms": largest, "job_pwcet_ms": cal.job_bound_ms(),
+            "r_hat_at_largest_job_ms": r_hat_largest,
+            "deadline_ms": spec.deadline_ms, "period_ms": spec.period_ms,
+            "job_walls_ms": walls, "min_headroom": health.min_headroom, "alerts": alerts,
+            "launches": counts,
+            "seconds": seconds, "prefill_on_gn_ms": prefill_gn, "cpu_segment0_ms": task.cpu_hi[0],
+            "sim_jobs": {c: s.jobs for c, s in sims.items()},
+            "sim_worst_ms": worst}
 
 
 def run_path(cfg, kernels_phase, n_sms) -> dict:

@@ -7,20 +7,23 @@ Four model services ask for admission with different periods and
 deadlines; the port's AdmissionController shares the card's SMs among them
 by Algorithm 2 (``gn_total`` = the card's SM count).  The chat-qwen service
 registers through its serving engine, which on the card measures its
-decode step at several SM counts and asks with the task those
-measurements give (``ServingEngine.rt_register``); the other three ask
+decode step and whole jobs at several SM counts and asks with the task
+those measurements give (``ServingEngine.rt_register``); the other three ask
 with the reference's estimated tasks.  The measured prefill and step are
 printed beside chat-qwen's deadline.  Where the measured job cannot meet
 that deadline on the whole card, chat-qwen asks again with a deadline of
-1.5 times its measured job's R̂ alone on the whole card.  Once admitted, its prefill
-and decode matmuls run on the GN SMs it holds: the engine serves one job
-of the spec's shape with qwen3-0.6b at full width (random weights).
+1.5 times its measured job's R̂ alone on the whole card.  As in the
+reference example, the discrete-event simulator then runs the admitted set
+for 5 s and must see no miss.  Once admitted, chat-qwen's prefill and
+decode matmuls run on the GN SMs it holds: the engine serves one job of
+the spec's shape with qwen3-0.6b at full width (random weights), then a
+few jobs at its period under the wall-clock executor, whose run the
+BoundMonitor reads against the certified R̂.
 
 Runs on the card unless asked for the CPU (``--device cpu``), where the
 SM count is the H100 SXM's 132, the engine serves the small smoke
-configuration, and chat-qwen's task is the reference's estimate.  The
-reference example's discrete-event runtime check waits for the port's
-copy of the simulator.
+configuration, and chat-qwen's task is the reference's estimate (which
+the CPU's jobs need not meet).
 """
 import argparse
 import dataclasses
@@ -30,11 +33,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.runtime import AdmissionController, ServingTaskSpec, serving_task_to_rt
+from repro_torch.obs import BoundMonitor
+from repro_torch.runtime import (AdmissionController, ServingTaskSpec, WallClockExecutor,
+                                 serving_task_to_rt, simulate)
 from repro_torch.runtime.task_spec import job_response_ms
+from repro_torch.sched import EventTrace
 from repro_torch.serving import ServeConfig, ServingEngine
+from repro_torch.serving.engine import executor_events
 
 H100_SXM_SMS = 132
+EXECUTOR_JOBS = 3
 
 SERVICES = [
     ServingTaskSpec(
@@ -74,10 +82,10 @@ def measured(engine, spec, sms: int) -> float:
     unbounded = dataclasses.replace(spec, deadline_ms=1e9, period_ms=2e9)
     r_all = job_response_ms(cal.task(unbounded), sms)
     row = cal.measured[sms]
-    print(f"{'':18s} measured on all {sms} SMs: prefill wall {row['prefill_ms']:.3f} ms, "
-          f"decode step device busy {max(row['device_ms']):.3f} ms and wall "
-          f"{max(row['wall_ms']):.3f} ms; the job's R^ alone {r_all:.3f} ms beside "
-          f"D={spec.deadline_ms:.1f} ms (prefill outside the task model)")
+    print(f"{'':18s} measured on all {sms} SMs: prefill wall {max(row['prefill_ms']):.3f} ms, "
+          f"decode step device busy {max(row['device_ms']):.3f} ms, whole job wall "
+          f"{max(row['job_ms']):.3f} ms; the job's R^ alone {r_all:.3f} ms beside "
+          f"D={spec.deadline_ms:.1f} ms")
     return r_all
 
 
@@ -115,6 +123,10 @@ def main():
     if not engine.rt_registered:
         raise SystemExit("chat-qwen was not admitted")
 
+    sim = simulate(ac.current_taskset(), ac.current_alloc_list(), horizon=5000.0, seed=0)
+    print(f"\nruntime check over 5 s: misses={sim.misses} jobs={sim.jobs}")
+    assert not sim.any_miss
+
     gn, first = engine.sm_range
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (qwen.batch, qwen.seq_len)).astype(np.int32)
@@ -123,6 +135,16 @@ def main():
           f"{out.shape[1]} tokens/slot, prefill {stats['prefill_s'] * 1e3:.1f} ms, "
           f"decode {stats['decode_s_per_tok'] * 1e3:.1f} ms/tok, D={qwen.deadline_ms:.1f} ms")
     print("sampled ids:", out[0].tolist())
+
+    trace = EventTrace(us_per_unit=1e6, label="chat-qwen")
+    executor = WallClockExecutor([engine.rt_service(qwen, prompts)], trace=trace)
+    stats = executor.run((EXECUTOR_JOBS - 0.5) * qwen.period_ms / 1e3)["chat-qwen"]
+    monitor = BoundMonitor().feed(executor_events(trace, {"chat-qwen": engine.rt_bound}))
+    health = monitor.tasks["chat-qwen"]
+    print(f"\nchat-qwen under the executor: {stats['completed']} of {stats['released']} jobs "
+          f"done, worst R {health.worst_response:.1f} ms against R^ {health.bound:.1f} ms, "
+          f"min headroom {health.min_headroom:.3f}, alerts {monitor.alert_counts() or 'none'}")
+    print("monitor totals:", monitor.summary()["totals"])
     engine.rt_deregister()
 
 

@@ -9,8 +9,9 @@ name with ``repro.`` read as ``repro_torch.``:
   rta_batch.py   frontier-batched vectorized analysis (numpy engine only)
   backend.py     backend selection for rta_batch ("numpy" only)
   interleave.py  virtual-SM model, Fig. 6 ratios, Eqs. 9-10
+  generator.py   task-set, churn-trace and golden-scenario generators
 
-``baselines.py`` and ``generator.py`` are not copied yet.
+``baselines.py`` is not copied yet.
 """
 from .task import GpuSegment, RTTask, SegmentKind, TaskSet, gpu_response_bounds
 from .workload import (
@@ -42,6 +43,17 @@ from .federated import (
 )
 from .rta_batch import BatchAnalyzer, grid_search_frontier
 from .backend import available_backends, get_backend, set_backend
+from .generator import (
+    GOLDEN_SCENARIOS,
+    ChurnConfig,
+    ChurnEvent,
+    GeneratorConfig,
+    ScenarioPreset,
+    generate_churn_trace,
+    generate_taskset,
+    generate_tasksets,
+    golden_scenario,
+)
 from .interleave import (
     INTERLEAVE_RATIO_MAX,
     KERNEL_TYPES,
@@ -82,6 +94,15 @@ __all__ = [
     "schedule",
     "iter_allocations",
     "min_viable_alloc",
+    "GeneratorConfig",
+    "generate_taskset",
+    "generate_tasksets",
+    "ChurnConfig",
+    "ChurnEvent",
+    "generate_churn_trace",
+    "ScenarioPreset",
+    "GOLDEN_SCENARIOS",
+    "golden_scenario",
     "INTERLEAVE_RATIO_MAX",
     "KERNEL_TYPES",
     "VirtualSMModel",

@@ -35,7 +35,7 @@ import torch
 
 from . import _build
 
-__all__ = ["TileTrace", "Grid", "tile_shape", "kernel_name", "stage_rows", "split_plan",
+__all__ = ["TileTrace", "TracePool", "Grid", "tile_shape", "kernel_name", "stage_rows", "split_plan",
            "tile_grid", "unit_of", "tile_of", "sm_ids", "persistent_matmul",
            "persistent_matmul_traced"]
 
@@ -180,11 +180,34 @@ def tile_of(band: int, lane: int, step: int, tiles_per_lane: int,
 class TileTrace:
     """What a traced launch saw: for each work unit the SM that computed it
     and how many times it was computed, plus the kernel's finished-unit
-    count."""
+    count.  The tensors stay on the card, so a traced launch does not wait
+    for the kernel; reading ``tiles_done`` synchronises."""
     tile_sm: torch.Tensor     # [units] int32, -1 if never computed
     tile_hits: torch.Tensor   # [units] int32
-    tiles_done: int
+    done: torch.Tensor        # [1] int32, the finished-unit count
     allowed_sms: tuple[int, ...]
+
+    @property
+    def tiles_done(self) -> int:
+        return int(self.done.item())
+
+
+class TracePool:
+    """Trace buffers for many traced launches, initialised once on the
+    card: each launch takes the next ``units`` entries as views, with no
+    allocation and no fill of its own, so tracing a whole job adds little
+    host time to it."""
+
+    def __init__(self, units: int, device):
+        self.tile_sm = torch.full((units,), -1, dtype=torch.int32, device=device)
+        self.tile_hits = torch.zeros(units, dtype=torch.int32, device=device)
+        self.used = 0
+
+    def take(self, units: int) -> tuple[torch.Tensor, torch.Tensor]:
+        a, self.used = self.used, self.used + units
+        if self.used > self.tile_sm.numel():
+            raise RuntimeError(f"trace pool of {self.tile_sm.numel()} units exhausted")
+        return self.tile_sm[a:self.used], self.tile_hits[a:self.used]
 
 
 _SM_IDS: dict[int, tuple[int, ...]] = {}
@@ -239,7 +262,8 @@ def _band_table(device: torch.device, first_sm: int, n_bands: int) -> torch.Tens
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, n_bands: Optional[int], first_sm: int,
-            traced: bool) -> tuple[torch.Tensor, Optional[TileTrace]]:
+            traced: bool, pool: Optional[TracePool] = None
+            ) -> tuple[torch.Tensor, Optional[TileTrace]]:
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError("persistent_matmul needs x and w on one CUDA device")
     if x.dtype not in _DTYPES or w.dtype != x.dtype:
@@ -273,8 +297,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, n_bands: Optional[int], first_sm: 
     ws = torch.empty((g.n_slices, m, n), dtype=torch.float32, device=dev) if split else None
     tile_sm = tile_hits = None
     if traced:
-        tile_sm = torch.full((g.units,), -1, dtype=torch.int32, device=dev)
-        tile_hits = torch.zeros(g.units, dtype=torch.int32, device=dev)
+        tile_sm, tile_hits = (pool or TracePool(g.units, dev)).take(g.units)
     # 16-byte aligned rows: x's when K % 8 == 0; w's when N % 8 == 0, or, where
     # one decode unit spans N, every slab of w when K % 8 == 0
     vec_x = k % 8 == 0 and x.data_ptr() % 16 == 0
@@ -295,7 +318,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, n_bands: Optional[int], first_sm: 
     persistent_matmul.launches += 1
     if not traced:
         return out, None
-    trace = TileTrace(tile_sm, tile_hits, int(counters[n_bands].item()),
+    trace = TileTrace(tile_sm, tile_hits, counters[n_bands:n_bands + 1],
                       tuple(ids[first_sm:first_sm + n_bands]))
     return out, trace
 
@@ -312,7 +335,9 @@ persistent_matmul.launches = 0
 
 
 def persistent_matmul_traced(x: torch.Tensor, w: torch.Tensor,
-                             n_bands: Optional[int] = None, first_sm: int = 0):
+                             n_bands: Optional[int] = None, first_sm: int = 0,
+                             pool: Optional[TracePool] = None):
     """As :func:`persistent_matmul`, also returning a :class:`TileTrace`
-    over work units (synchronises to read the finished-unit count)."""
-    return _launch(x, w, n_bands, first_sm, traced=True)
+    over work units (its buffers taken from ``pool``, by default a pool of
+    this launch alone)."""
+    return _launch(x, w, n_bands, first_sm, traced=True, pool=pool)

@@ -22,14 +22,23 @@ included.
 :func:`measured_task_to_rt` builds the task from the card instead: the
 GPU segment from the device-busy decode step measured at several SM
 counts and fitted by :func:`fit_step` (Fig. 4's t(m) = (C−L)/m + L), the
-host's wall per step added to each decode token's CPU segment.  A
-:class:`DecodeCalibration` holds those measurements for one prompt shape;
-``ServingEngine.rt_register`` takes them on the card and admits the task
-they give.
+prefill's wall added to the first CPU segment and a host share per step
+added to each decode token's, so the task bounds the whole job
+``ServingEngine.generate`` runs: one prefill, then ``new_tokens`` decode
+steps.  A :class:`DecodeCalibration` holds those measurements for one job
+shape, whole jobs' walls among them; ``ServingEngine.rt_register`` takes
+them on the card and admits the task they give.
+
+The host's wall has no bound to measure, only samples, so the job's wall
+enters the task as a probabilistic WCET (:func:`pwcet_ms`): the extreme
+value fit of measurement-based probabilistic timing analysis (a Gumbel
+distribution fitted to the maxima of blocks of jobs), read at a stated
+exceedance probability per job.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -39,11 +48,13 @@ from repro_torch.core import (INTERLEAVE_RATIO_MAX, GpuSegment, RTTask, TaskSet,
 from repro_torch.roofline import HBM_BW
 
 __all__ = ["ServingTaskSpec", "serving_task_to_rt", "StepFit", "fit_step",
-           "measured_task_to_rt", "DecodeCalibration", "job_response_ms"]
+           "measured_task_to_rt", "pwcet_ms", "DecodeCalibration", "job_response_ms"]
 
 PCIE_BW = 16e9          # bytes/s host<->device
 HOST_TOKENIZE_US_PER_TOK = 0.3
 HOST_SAMPLE_US = 120.0
+PWCET_BLOCK = 8         # consecutive calibration jobs whose largest wall is one maximum
+PWCET_EXCEEDANCE = 1e-3  # probability per job that its wall exceeds the pWCET
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,38 +158,74 @@ def fit_step(sms: Sequence[int], device_ms: Sequence[float]) -> StepFit:
     return StepFit(sms, tuple(float(x) for x in t), a, l_ms)
 
 
-def measured_task_to_rt(spec: ServingTaskSpec, fit: StepFit, host_step_ms: float) -> RTTask:
+def measured_task_to_rt(spec: ServingTaskSpec, fit: StepFit, host_step_ms: float,
+                        prefill_ms: float) -> RTTask:
     """The serving job's task from measurements on the card.
 
     GPU segment per decode token: GL̂ = L and GŴ = 2A + L from ``fit``, so
     that Lemma 5.1's GR̂ on 2m virtual SMs, (GŴα − GL̂)/2m + GL̂ =
     Aα/m + L(α−1)/2m + L, is at least the envelope A/m + L >= t(m) at every
     measured m (α >= 1).  CPU segment per decode token: sampling's
-    estimate plus ``host_step_ms``, the host's wall per step (the largest
-    measured).  Prefill's CPU segment, the memory copies, α and the
-    deadline and period are ``serving_task_to_rt``'s."""
+    estimate plus ``host_step_ms``, the host's share of a step.  First CPU
+    segment: the tokenize estimate plus
+    ``prefill_ms``, the prefill's wall (the largest measured), so the
+    chain keeps ``len(gpu) == new_tokens`` and still bounds the prefill.
+    The memory copies, α and the deadline and period are
+    ``serving_task_to_rt``'s."""
     base = serving_task_to_rt(spec)
     gw_ms = 2.0 * fit.a_ms + fit.l_ms
     v = spec.variability
     gpu = tuple(dataclasses.replace(seg, work_lo=gw_ms * (1 - v), work_hi=gw_ms,
                                     overhead_hi=fit.l_ms) for seg in base.gpu)
-    cpu_hi = base.cpu_hi[:1] + tuple(c + host_step_ms for c in base.cpu_hi[1:])
+    cpu_hi = ((base.cpu_hi[0] + prefill_ms,)
+              + tuple(c + host_step_ms for c in base.cpu_hi[1:]))
     return dataclasses.replace(base, cpu_lo=tuple(c * (1 - v) for c in cpu_hi),
                                cpu_hi=cpu_hi, gpu=gpu)
 
 
+def pwcet_ms(walls: Sequence[float]) -> float:
+    """The wall that one more job exceeds with probability
+    ``PWCET_EXCEEDANCE``: a Gumbel distribution fitted by its moments to the
+    maxima of blocks of ``PWCET_BLOCK`` consecutive ``walls``, read where a
+    block's maximum exceeds it with probability 1 − (1 −
+    PWCET_EXCEEDANCE)^PWCET_BLOCK; never below the largest wall.  Needs two
+    blocks or more."""
+    x = np.asarray(walls, dtype=np.float64)
+    n = len(x) // PWCET_BLOCK
+    if n < 2:
+        raise ValueError(f"need two blocks of {PWCET_BLOCK} walls, got {len(x)} walls")
+    maxima = x[:n * PWCET_BLOCK].reshape(n, PWCET_BLOCK).max(axis=1)
+    beta = float(np.std(maxima, ddof=1)) * math.sqrt(6.0) / math.pi
+    mu = float(np.mean(maxima)) - np.euler_gamma * beta
+    p_block = -math.expm1(PWCET_BLOCK * math.log1p(-PWCET_EXCEEDANCE))
+    return max(mu - beta * math.log(-math.log1p(-p_block)), float(x.max()))
+
+
 @dataclasses.dataclass
 class DecodeCalibration:
-    """The decode step of one prompt shape ([batch, seq_len]) measured on
-    the card.  ``measured[m]`` holds, with the pinned matmuls on m SMs, the
-    prefill's wall (``prefill_ms``) and each decode step's device-busy time
-    and wall (``device_ms``, ``wall_ms``), in ms.  ``host_ms`` is the
-    largest step wall of the first measurement, fixed from then on."""
+    """The job of one shape ([batch, seq_len] prompts, ``new_tokens``
+    decode steps) measured on the card.  ``measured[m]`` holds, with the
+    pinned matmuls on m SMs, each prefill's wall (``prefill_ms``) and each
+    decode step's device-busy time (``device_ms``), in ms.  ``job_ms``
+    holds the walls of the first calibration's whole jobs (one
+    ``ServingEngine.generate`` each), fixed from then on, so a refit
+    cannot move the host's part of R̂.
+
+    The task's CPU segments together carry the pWCET of those jobs'
+    walls (:func:`pwcet_ms`, in the order they were timed): the first the
+    largest prefill wall, each decode token's the rest, spread evenly
+    (:meth:`host_step_ms`).  The GPU segments, which count the device's
+    time a second time, stand on top."""
 
     batch: int
     seq_len: int
+    new_tokens: int
     measured: dict[int, dict]
-    host_ms: float
+    job_ms: tuple[float, ...]
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return self.batch, self.seq_len, self.new_tokens
 
     def fit(self, without: Optional[int] = None) -> StepFit:
         """The fit of each m's largest device-busy step, leaving out the
@@ -186,9 +233,27 @@ class DecodeCalibration:
         sms = sorted(m for m in self.measured if m != without)
         return fit_step(sms, [max(self.measured[m]["device_ms"]) for m in sms])
 
+    def prefill_ms(self) -> float:
+        """The largest prefill wall over every measured SM count."""
+        return max(max(row["prefill_ms"]) for row in self.measured.values())
+
+    def job_bound_ms(self) -> float:
+        """The pWCET of one job's wall from the calibration's jobs."""
+        return pwcet_ms(self.job_ms)
+
+    def host_step_ms(self) -> float:
+        """Each decode token's share of :meth:`job_bound_ms` after the
+        largest prefill wall: (pWCET − :meth:`prefill_ms`) / new_tokens, at
+        least 0."""
+        return max(self.job_bound_ms() - self.prefill_ms(), 0.0) / self.new_tokens
+
     def task(self, spec: ServingTaskSpec, without: Optional[int] = None) -> RTTask:
         """``spec``'s task from these measurements (:func:`measured_task_to_rt`)."""
-        return measured_task_to_rt(spec, self.fit(without), self.host_ms)
+        shape = (spec.batch, spec.seq_len, spec.new_tokens)
+        if shape != self.shape:
+            raise ValueError(f"{spec.name}: job shape {shape}, calibrated {self.shape}")
+        return measured_task_to_rt(spec, self.fit(without), self.host_step_ms(),
+                                   self.prefill_ms())
 
     def gr_hi(self, spec: ServingTaskSpec, m: int, held_out: bool = False) -> float:
         """The GPU segment's GR̂ on m SMs (2m virtual SMs), in ms; with

@@ -5,7 +5,9 @@ Counterpart of ``repro.serving.engine``.  Steps are timed with CUDA events
 on the card and with ``perf_counter`` on the CPU.  On the card an engine
 asks for admission with a task measured there (:meth:`ServingEngine.
 rt_register`), and once admitted runs its prefill and decode matmuls on the
-GN SMs it holds (``ops.on_sms``).
+GN SMs it holds (``ops.on_sms``).  :meth:`ServingEngine.rt_service` is the
+admitted service as ``WallClockExecutor`` runs it, and
+:func:`executor_events` hands that run to ``BoundMonitor``.
 """
 from __future__ import annotations
 
@@ -20,12 +22,16 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.kernels import ops
 from repro_torch.models import Model, ModelConfig
 from repro_torch.runtime.admission import AdmissionDecision
+from repro_torch.runtime.executor import Service
 from repro_torch.runtime.task_spec import DecodeCalibration, serving_task_to_rt
+from repro_torch.sched import TraceEvent
 
 __all__ = ["ServeConfig", "ServingEngine", "calibration_sms", "device_busy_ms",
-           "profiled_ms", "sample_greedy", "sample_topk"]
+           "executor_events", "profiled_ms", "sample_greedy", "sample_topk"]
 
-CALIBRATION_STEPS = 6   # decode steps timed, and as many profiled, at each SM count
+CALIBRATION_STEPS = 6   # decode steps profiled at each SM count
+CALIBRATION_PREFILLS = 3  # prefills timed at each SM count, after one untimed
+CALIBRATION_JOBS = 16   # whole jobs timed at each SM count of the first calibration
 READMITS = 10           # admissions tried until the granted GN is a measured count
 
 
@@ -136,7 +142,7 @@ class ServingEngine:
         if self.device.type != "cuda":
             return self._admit(controller, spec.name, serving_task_to_rt(spec), t)
         cal = self.rt_calibration
-        if cal is None or (cal.batch, cal.seq_len) != (spec.batch, spec.seq_len):
+        if cal is None or cal.shape != (spec.batch, spec.seq_len, spec.new_tokens):
             cal = self.calibrate(spec)
         for _ in range(READMITS):
             dec = self._admit(controller, spec.name, cal.task(spec), t)
@@ -158,15 +164,18 @@ class ServingEngine:
         return dec
 
     def calibrate(self, spec) -> DecodeCalibration:
-        """Measure the decode step of ``spec``'s prompt shape (random
-        tokens from a fixed seed) on the card at the
-        :func:`calibration_sms` of its SM count; kept as
-        ``rt_calibration``, which :meth:`rt_register` reuses."""
+        """Measure ``spec``'s job (random prompt tokens from a fixed seed,
+        ``spec.new_tokens`` decode steps) on the card at the
+        :func:`calibration_sms` of its SM count, ``CALIBRATION_JOBS`` whole
+        jobs at each; kept as ``rt_calibration``, which :meth:`rt_register`
+        reuses."""
         sms = calibration_sms(torch.cuda.get_device_properties(
             self.device).multi_processor_count)
-        meas = self.measure_decode(_prompts(spec, self.cfg.vocab), sms)
-        host_ms = max(w for row in meas.values() for w in row["wall_ms"])
-        self.rt_calibration = DecodeCalibration(spec.batch, spec.seq_len, meas, host_ms)
+        meas = self.measure_decode(_prompts(spec, self.cfg.vocab), sms, spec.new_tokens,
+                                   CALIBRATION_JOBS)
+        jobs = tuple(w for m in sms for w in meas[m]["job_ms"])
+        self.rt_calibration = DecodeCalibration(spec.batch, spec.seq_len, spec.new_tokens,
+                                                meas, jobs)
         return self.rt_calibration
 
     def rt_deregister(self, t: float = 0.0) -> bool:
@@ -187,6 +196,35 @@ class ServingEngine:
     def rt_task(self):
         """The task admitted for this service (None when not admitted)."""
         return None if self._rt is None else self._rt[2]
+
+    @property
+    def rt_bound(self) -> Optional[tuple[float, int]]:
+        """(certified R̂ in ms, GN) of the admitted service now, from its
+        controller (behind the static ``AdmissionController``, from the
+        online controller it wraps); None when not admitted."""
+        if self._rt is None:
+            return None
+        controller, name, _ = self._rt
+        return (getattr(controller, "dynamic", controller).bound(name),
+                controller.allocation[name])
+
+    def rt_service(self, spec, prompts: np.ndarray,
+                   generator: Optional[torch.Generator] = None) -> Service:
+        """The admitted service as ``WallClockExecutor`` runs it: released
+        every ``spec.period_ms`` with deadline ``spec.deadline_ms``, each job
+        one ``generate(prompts, spec.new_tokens)`` of the spec's shape,
+        which reads :attr:`sm_range` as it starts."""
+        if self._rt is None or self._rt[1] != spec.name:
+            raise ValueError(f"{spec.name}: not admitted on this engine")
+        if prompts.shape != (spec.batch, spec.seq_len):
+            raise ValueError(f"prompts {prompts.shape} are not the spec's "
+                             f"{(spec.batch, spec.seq_len)}")
+
+        def run_job():
+            self.generate(prompts, spec.new_tokens, generator)
+
+        return Service(spec.name, period_s=spec.period_ms / 1e3,
+                       deadline_s=spec.deadline_ms / 1e3, run_job=run_job)
 
     @property
     def sm_range(self) -> Optional[tuple[int, int]]:
@@ -211,13 +249,17 @@ class ServingEngine:
                                f"(disjoint) allocations map onto the card's SMs")
         return alloc[name], first
 
-    @torch.inference_mode()
     def generate(
         self,
         prompts: np.ndarray,           # [B, S] int32
         max_new_tokens: int = 16,
         generator: Optional[torch.Generator] = None,
     ) -> tuple[np.ndarray, dict]:
+        return self._generate(prompts, max_new_tokens, generator, self.sm_range or (None, 0))
+
+    @torch.inference_mode()
+    def _generate(self, prompts, max_new_tokens, generator, held) -> tuple[np.ndarray, dict]:
+        """One job, its pinned matmuls on ``held`` = (n_bands, first SM)."""
         b, s = prompts.shape
         if b != self.serve.batch:
             raise ValueError(f"batch {b} != ServeConfig.batch {self.serve.batch}")
@@ -229,8 +271,7 @@ class ServingEngine:
 
         out = np.zeros((b, max_new_tokens), np.int32)
         prefill_t, decode_t = _StepTimer(self.device), _StepTimer(self.device)
-        n_bands, first_sm = self.sm_range or (None, 0)
-        with ops.on_sms(n_bands, first_sm):
+        with ops.on_sms(*held):
             prefill_t.start()
             logits, caches = model.prefill(tokens, caches)
             prefill_t.stop()
@@ -253,53 +294,78 @@ class ServingEngine:
         return out, stats
 
     @torch.inference_mode()
-    def measure_decode(self, prompts: np.ndarray, sms) -> dict:
-        """The prefill's wall and each decode step's device-busy time and
-        wall, in ms, with the pinned matmuls on m SMs, for each m in
-        ``sms``: ``{m: {"prefill_ms": x, "device_ms": [...], "wall_ms":
-        [...]}}``.  On the card only.
+    def measure_decode(self, prompts: np.ndarray, sms, new_tokens: int = 0,
+                       jobs: int = 0) -> dict:
+        """Each prefill's wall, each decode step's device-busy time and
+        each whole job's wall, in ms, with the pinned matmuls on m SMs, for
+        each m in ``sms``: ``{m: {"prefill_ms": [...], "device_ms": [...],
+        "job_ms": [...]}}``.  On the card only.
 
-        After one prefill of ``prompts``, ``CALIBRATION_STEPS`` decode
-        steps are timed on the host clock with a synchronise on both sides
-        (the host's issue plus the device's tail: an upper bound on the
-        host's share), then as many more each in a profiler window of its
-        own (:func:`profiled_ms`)."""
+        After one untimed prefill of ``prompts``, ``CALIBRATION_PREFILLS``
+        are timed on the host clock with a synchronise on both sides, each
+        with the caches' allocation, as a job starts.  After the last,
+        ``CALIBRATION_STEPS`` decode steps each run in a profiler window of
+        its own (:func:`profiled_ms`).  Then ``jobs`` whole jobs of
+        ``new_tokens`` decode steps, each what :meth:`generate` runs, are
+        timed on the host clock with a synchronise on both sides: the
+        host's issue plus the device's tail, sampling included."""
         if self.device.type != "cuda":
             raise RuntimeError("measuring the decode step needs the card")
 
         b, s = prompts.shape
         steps = CALIBRATION_STEPS
-        if s + 2 * steps + 1 > self.serve.max_context:
+        if s + steps + 1 > self.serve.max_context:
             raise ValueError("prompt + measured steps exceed max_context")
         model = self.model
         tokens = torch.as_tensor(prompts, dtype=torch.int32, device=self.device)
         out = {}
         for m in sms:
             with ops.on_sms(m):
-                caches = model.init_caches(b, self.serve.max_context)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits, caches = model.prefill(tokens, caches)
-                torch.cuda.synchronize()
-                prefill_ms = (time.perf_counter() - t0) * 1e3
+                prefill_ms = []
+                for i in range(CALIBRATION_PREFILLS + 1):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    caches = model.init_caches(b, self.serve.max_context)
+                    logits, caches = model.prefill(tokens, caches)
+                    torch.cuda.synchronize()
+                    if i:
+                        prefill_ms.append((time.perf_counter() - t0) * 1e3)
                 tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
                 cache_len = torch.full((b,), s, dtype=torch.int32, device=self.device)
                 model.decode_step(tok, caches, cache_len)  # warm
-                wall, busy = [], []
-                for i in range(2 * steps):
+                busy = []
+                for _ in range(steps):
                     cache_len = cache_len + 1
-                    if i < steps:
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                        model.decode_step(tok, caches, cache_len)
-                        torch.cuda.synchronize()
-                        wall.append((time.perf_counter() - t0) * 1e3)
-                    else:
-                        busy.append(profiled_ms(model.decode_step, tok, caches, cache_len)[1])
+                    busy.append(profiled_ms(model.decode_step, tok, caches, cache_len)[1])
             if not all(busy):
                 raise RuntimeError(f"the profiler saw no device time on {m} SMs")
-            out[m] = {"prefill_ms": prefill_ms, "device_ms": busy, "wall_ms": wall}
+            job_ms = []
+            for _ in range(jobs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                self._generate(prompts, new_tokens, None, (m, 0))
+                torch.cuda.synchronize()
+                job_ms.append((time.perf_counter() - t0) * 1e3)
+            out[m] = {"prefill_ms": prefill_ms, "device_ms": busy, "job_ms": job_ms}
         return out
+
+
+def executor_events(trace, admitted: dict[str, tuple[float, int]]) -> list[TraceEvent]:
+    """A ``WallClockExecutor`` trace in ``BoundMonitor``'s terms: an
+    ``admit`` per service of ``admitted`` (name -> (certified R̂ ms, GN),
+    e.g. :attr:`ServingEngine.rt_bound`), then each job's ``complete`` with
+    its ``response`` in ms and each ``miss`` with its ``overshoot`` in ms.
+    The executor records seconds and no bound, which the monitor cannot
+    read as they are."""
+    out = [TraceEvent(0.0, "admit", name, (("bound", r_hat), ("gn", gn)))
+           for name, (r_hat, gn) in admitted.items()]
+    in_ms = {"complete": ("response", "response_s"), "miss": ("overshoot", "overshoot_s")}
+    for ev in trace.events:
+        if ev.kind in in_ms:
+            key, seconds = in_ms[ev.kind]
+            out.append(TraceEvent(ev.t, ev.kind, ev.task,
+                                  ((key, dict(ev.meta)[seconds] * 1e3),)))
+    return out
 
 
 def _prompts(spec, vocab: int) -> np.ndarray:

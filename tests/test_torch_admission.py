@@ -246,9 +246,13 @@ def _curve(m: int) -> float:
     return 400.0 / m + 6.0
 
 
-def _measured(sms, host=20.0) -> dict:
-    return {m: {"prefill_ms": 50.0, "device_ms": [_curve(m), 0.99 * _curve(m)],
-                "wall_ms": [host, host - 1]} for m in sms}
+# whole-job walls: a 50 ms prefill, 2 decode steps of about 20 ms
+JOBS_MS = tuple(90.0 - (7 * i) % 5 for i in range(16))
+
+
+def _measured(sms) -> dict:
+    return {m: {"prefill_ms": [50.0, 49.0, 48.0], "device_ms": [_curve(m), 0.99 * _curve(m)],
+                "job_ms": []} for m in sms}
 
 
 def test_card_registration_measures_the_granted_gn(monkeypatch):
@@ -268,7 +272,7 @@ def test_card_registration_measures_the_granted_gn(monkeypatch):
 
     monkeypatch.setattr(eng, "measure_decode", measure)
     spec = dataclasses.replace(_spec(), deadline_ms=1e9, period_ms=2e9)
-    cal = DecodeCalibration(2, 8, _measured(calibration_sms(gn_total)), host_ms=20.0)
+    cal = DecodeCalibration(2, 8, 2, _measured(calibration_sms(gn_total)), JOBS_MS)
     eng.rt_calibration = cal
     deadline = job_response_ms(cal.task(spec), gn_total // 3)
     spec = dataclasses.replace(spec, deadline_ms=deadline, period_ms=2 * deadline)
@@ -285,8 +289,8 @@ def test_card_registration_measures_the_granted_gn(monkeypatch):
 
 def test_held_out_prediction_is_the_fit_without_that_count():
     spec = _spec()
-    cal = DecodeCalibration(2, 8, _measured((16, 33, 44, 66, 132)), host_ms=20.0)
-    without = DecodeCalibration(2, 8, _measured((16, 33, 66, 132)), host_ms=20.0)
+    cal = DecodeCalibration(2, 8, 2, _measured((16, 33, 44, 66, 132)), JOBS_MS)
+    without = DecodeCalibration(2, 8, 2, _measured((16, 33, 66, 132)), JOBS_MS)
     assert cal.fit(without=44) == without.fit()
     assert cal.gr_hi(spec, 44, held_out=True) == without.gr_hi(spec, 44)
     assert cal.gr_hi(spec, 44) >= _curve(44)
@@ -294,7 +298,7 @@ def test_held_out_prediction_is_the_fit_without_that_count():
 
 def test_job_response_shrinks_with_sms():
     spec = dataclasses.replace(_spec(), deadline_ms=1e9, period_ms=2e9)
-    task = DecodeCalibration(2, 8, _measured((16, 66, 132)), host_ms=20.0).task(spec)
+    task = DecodeCalibration(2, 8, 2, _measured((16, 66, 132)), JOBS_MS).task(spec)
     r = [job_response_ms(task, m) for m in (8, 33, 132)]
     assert all(np.isfinite(r)) and r[0] > r[1] > r[2] > 0
 
@@ -323,7 +327,7 @@ def test_fit_bounds_every_measured_point(seed):
     fit = fit_step(sms, t)
     assert fit.a_ms >= 0 and fit.l_ms >= 0
     spec = _spec()
-    task = measured_task_to_rt(spec, fit, host_step_ms=30.0)
+    task = measured_task_to_rt(spec, fit, host_step_ms=30.0, prefill_ms=40.0)
     seg = task.gpu[0]
     assert seg.work_hi == pytest.approx(2 * fit.a_ms + fit.l_ms)
     assert seg.overhead_hi == fit.l_ms
@@ -351,14 +355,14 @@ def test_fit_needs_three_sm_counts():
 
 
 def test_measured_task_keeps_the_host_in_cpu_segments():
-    """Prefill's CPU segment, the memory copies and the segment count are
-    serving_task_to_rt's; each decode token's CPU segment adds the host's
-    step; the GPU segment is the fit's, at the kernel type's alpha."""
+    """The memory copies and the segment count are serving_task_to_rt's;
+    the first CPU segment adds the prefill's wall, each decode token's the
+    host's step; the GPU segment is the fit's, at the kernel type's alpha."""
     spec = _spec()
     fit = StepFit(sms=(8, 66, 132), device_ms=(60.0, 10.0, 7.0), a_ms=400.0, l_ms=6.0)
     base = serving_task_to_rt(spec)
-    task = measured_task_to_rt(spec, fit, host_step_ms=25.0)
-    assert task.cpu_hi[0] == base.cpu_hi[0]
+    task = measured_task_to_rt(spec, fit, host_step_ms=25.0, prefill_ms=40.0)
+    assert task.cpu_hi[0] == base.cpu_hi[0] + 40.0
     assert task.cpu_hi[1:] == tuple(c + 25.0 for c in base.cpu_hi[1:])
     assert task.mem_hi == base.mem_hi and task.n_gpu == base.n_gpu
     assert task.deadline == spec.deadline_ms and task.period == spec.period_ms
@@ -380,5 +384,6 @@ def test_measured_task_admits_on_the_port_controller():
                            deadline_ms=2000.0, batch=4, seq_len=256, new_tokens=16,
                            dominant="memory_s", vocab=151936)
     fit = StepFit(sms=(16, 66, 132), device_ms=(21.0, 12.5, 10.5), a_ms=175.0, l_ms=9.0)
-    dec = PortAdmission(gn_total=132).admit(measured_task_to_rt(spec, fit, host_step_ms=45.0))
+    dec = PortAdmission(gn_total=132).admit(measured_task_to_rt(spec, fit, host_step_ms=45.0,
+                                                                    prefill_ms=40.0))
     assert dec.admitted and 1 <= dec.alloc["chat"] <= 132

@@ -1,4 +1,4 @@
-"""The port's copies of the framework-free admission closure against the
+"""The port's copies of the framework-free modules against the
 reference modules they were copied from.
 
 Each copy must be the reference file with ``repro.`` read as
@@ -32,6 +32,13 @@ COPIES = [
     "sched/federation.py",
     "sched/recovery.py",
     "runtime/admission.py",
+    "core/generator.py",
+    "runtime/engine.py",
+    "runtime/simulator.py",
+    "runtime/record_golden.py",
+    "obs/monitor.py",
+    "obs/report.py",
+    "runtime/executor.py",
 ]
 
 # module -> {"reference": names cut from the reference, "port": names cut
