@@ -23,31 +23,38 @@ Runs from the repository root and imports only ``repro_torch`` (from
       a library yardstick and its bound (and GB/s for the M <= 4 matmul),
       and its time when issued eagerly;
    b. main path: full-width qwen3-0.6b in bf16 (random weights from a seed)
-      through ``ServingEngine.generate``, two rounds of 4 requests of 256
-      prompt tokens and 16 greedy tokens, with the kernels' exact launch
-      counts; then the prefill logits against the same model on the plain
-      versions (no kernel launches there: every counter is held still),
-      both held to a float32 run of the plain versions (one block at a
-      time), and each block's own error on either path, reported;
+      through ``ServingEngine.generate``, its prefill and decode steps
+      captured as CUDA graphs first (the capture timed), two rounds of 4
+      requests of 256 prompt tokens and 16 greedy tokens as graph replays,
+      with the kernels' exact launch counts (a replay adds the launches its
+      capture recorded); the replays' tokens equal to the eager path's on
+      the same prompts; then the prefill logits against the same model on
+      the plain versions (no kernel launches there: every counter is held
+      still), both held to a float32 run of the plain versions (one block
+      at a time), and each block's own error on either path, reported;
    c. profile: device time by kernel and the device's idle share over one
-      prefill and eight decode steps (torch.profiler), with each pinned
-      matmul variant's and the flash variant's launches in a prefill held
-      to the shapes' choice;
-   d. admission: the decode step's device-busy time, the prefill's wall
-      and whole jobs' walls measured at five SM counts, the step fitted
+      prefill and eight decode steps (torch.profiler), replayed and eager,
+      with each pinned matmul variant's and the flash variant's launches
+      in a prefill held to the shapes' choice;
+   d. admission: the steps' graphs captured on five SM counts, then the
+      decode step's device-busy time, the prefill's wall and whole jobs'
+      walls measured there (graph replays), the independence of the job
+      walls (lag-1 autocorrelation, runs test), the step fitted
       (t(m) <= A/m + L: GW = 2A + L, GL = L; the largest prefill wall goes
       into the first CPU segment, the rest of the jobs' pWCET into the
       decode CPU segments), the
       task admitted by a port AdmissionController over the card's SMs
-      (1 < GN < all), then rounds through ``generate`` registered: every
-      pinned matmul launch traced on the GN SMs, and each decode step's
-      device-busy time held to GR^(GN);
+      (1 < GN < all), the replays' tokens on GN against the eager path's,
+      then rounds through ``generate`` registered: graphs captured with
+      every pinned matmul traced on the GN SMs (each replay's units
+      checked in the graph), and each decode step's device-busy time held
+      to GR^(GN);
    e. engine: the admitted service alone under the port's
-      WallClockExecutor for ENGINE_JOBS whole jobs at its period (every
-      pinned matmul traced on the GN SMs), the port's BoundMonitor reading
-      each job's R against the certified R^ (no bound_violation, no
-      deadline_miss, every R <= R^), and the port's simulate over the
-      admitted set with no miss;
+      WallClockExecutor for ENGINE_JOBS whole jobs at its period (graphs
+      with every pinned matmul traced on the GN SMs), the port's
+      BoundMonitor reading each job's R against the certified R^ (no
+      bound_violation, no deadline_miss, every R <= R^), and the port's
+      simulate over the admitted set with no miss;
 4. jamba-v0.1-52b path, at full width cut to one period of 8 layers (the
    32 layers' 102.9 GB of bf16 weights exceed the card's 80 GB), after
    the qwen engine is freed: the same five phases, with selective_scan
@@ -178,15 +185,6 @@ def bound(n_bytes: float, flops: float, f32: bool = False) -> dict:
     t_ops = flops / (PEAK_FLOPS_F32 if f32 else PEAK_FLOPS) * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes, "ops_ms": t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def launch_counters() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.persistent_matmul import persistent_matmul
-    from repro_torch.kernels.selective_scan import selective_scan
-
-    return {"persistent_matmul": persistent_matmul, "flash_attention": flash_attention,
-            "selective_scan": selective_scan}
 
 
 @contextlib.contextmanager
@@ -715,27 +713,53 @@ def prefill_f32(model, tokens):
     return x[:, -1:] @ head["w"].float().T, block_errs
 
 
+def graphs_match_eager(engine, prompts, held, replayed) -> dict:
+    """The prompts' jobs on SMs ``held`` issued op by op (the engine's eager
+    steps), each against the tokens the graph replays gave (``replayed``):
+    equal.  Returns the last eager job's prefill ms and decode ms/step
+    (CUDA events)."""
+    import numpy as np
+
+    eager = [engine._generate(p, NEW_TOKENS, None, held, eager=True) for p in prompts]
+    for i, ((out, _), want) in enumerate(zip(eager, replayed)):
+        check(np.array_equal(out, want), f"{engine.cfg.name} on SMs {held}: job {i}'s tokens "
+              f"from the graph replays differ from the eager path's")
+    stats = {"prefill_ms": eager[-1][1]["prefill_s"] * 1e3,
+             "decode_ms": eager[-1][1]["decode_s_per_tok"] * 1e3}
+    print(f"[graphs] {engine.cfg.name} on SMs {held}: {len(prompts)} jobs as graph replays and "
+          f"issued eagerly, identical tokens; eager prefill {stats['prefill_ms']:.3f} ms, decode "
+          f"{stats['decode_ms']:.3f} ms/step (CUDA events)")
+    return stats
+
+
 def phase_main_path(cfg) -> dict:
     import numpy as np
     import torch
     from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.serving.graphs import WARMUP
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, ServeConfig(max_context=MAX_CONTEXT, batch=BATCH), seed=SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    capture_s = engine.capture(PROMPT)
+    prefill_graph, decode_graph = engine.steps(PROMPT).graphs
+    print(f"[main] {cfg.name}: the prefill and decode steps captured as CUDA graphs on all SMs "
+          f"in {capture_s:.2f} s ({WARMUP} eager runs each first); one replay holds "
+          f"{prefill_graph.launches} and {decode_graph.launches} launches")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, (BATCH, PROMPT)).astype(np.int32)
                for _ in range(ROUNDS)]
 
     counters = zeroed_counters()
-    rounds = []
+    rounds, outs = [], []
     for p in prompts:
         t1 = time.perf_counter()
         out, stats = engine.generate(p, max_new_tokens=NEW_TOKENS)
         stats["wall_s"] = time.perf_counter() - t1
         rounds.append(stats)
+        outs.append(out)
         check(out.shape == (BATCH, NEW_TOKENS), f"tokens shape {out.shape}")
         check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token outside the vocab")
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -744,7 +768,11 @@ def phase_main_path(cfg) -> dict:
     check(all(launches[k] > 0 for k, v in expected.items() if v),
           f"a kernel of the path was not launched on the main path: {launches}")
     check(launches == expected, f"launches {launches} != expected {expected}")
+    check(prefill_graph.replays == decode_graph.replays // NEW_TOKENS == ROUNDS,
+          f"{cfg.name}: {prefill_graph.replays} prefill and {decode_graph.replays} decode "
+          f"replays, {ROUNDS} rounds run")
     peak_serve_gb = torch.cuda.max_memory_allocated() / 1e9
+    eager = graphs_match_eager(engine, prompts, (None, 0), outs)
 
     model = engine.model
     with torch.inference_mode():
@@ -772,8 +800,8 @@ def phase_main_path(cfg) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"[main] {cfg.name} bf16 batch {BATCH}: prefill {steady['prefill_s'] * 1e3:.3f} ms "
           f"({BATCH}x{PROMPT} tokens), decode {steady['decode_s_per_tok'] * 1e3:.3f} ms/step, "
-          f"{tok_s:.1f} tokens/s; round walls {[round(r['wall_s'], 3) for r in rounds]} s; "
-          f"init {init_s:.1f} s")
+          f"{tok_s:.1f} tokens/s (graph replays, CUDA events); round walls "
+          f"{[round(r['wall_s'], 4) for r in rounds]} s; init {init_s:.1f} s")
     print(f"[main] {cfg.name} prefill logits rel L2: kernels vs plain {rel:.4g}, kernels vs "
           f"float32 {rel_truth:.4g}, plain bf16 vs float32 {noise:.4g}; max abs {max_abs:.3g}, "
           f"argmax agreement {argmax_agree:.3f}")
@@ -784,7 +812,8 @@ def phase_main_path(cfg) -> dict:
     print(f"[main] {cfg.name} peak device memory: serving {peak_serve_gb:.2f} GB, with the "
           f"checks {peak_gb:.2f} GB")
     return {"engine": engine, "prompt": prompts[0],
-            "launches": launches, "rounds": rounds, "init_s": init_s,
+            "launches": launches, "rounds": rounds, "init_s": init_s, "capture_s": capture_s,
+            "eager": eager,
             "logits_rel_l2": rel, "logits_rel_l2_vs_f32": rel_truth,
             "plain_bf16_rel_l2_vs_f32": noise, "block_update_rel_l2": block_errs,
             "logits_max_abs": max_abs, "argmax_agree": argmax_agree,
@@ -830,26 +859,21 @@ def _profile(fn, steps: int) -> dict:
 
 
 def phase_profile(engine, prompt) -> dict:
+    """One prefill and eight decode steps under the profiler, as graph
+    replays and issued eagerly, on all SMs."""
     import torch
 
     model = engine.model
+    steps = {"prefill": 1, "decode": 8}
     out = {}
-    with torch.inference_mode():
-        tokens = torch.as_tensor(prompt, device="cuda")
-        caches = model.init_caches(BATCH, MAX_CONTEXT)
-        steps = {"prefill": 1, "decode": 8}
-        out["prefill"] = _profile(lambda: model.prefill(tokens, caches), steps["prefill"])
-        logits, caches = model.prefill(tokens, caches)
-        tok = logits[:, -1].argmax(-1)[:, None]
-        state = {"len": torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")}
-
-        def step():
-            model.decode_step(tok, caches, state["len"])
-            state["len"] = state["len"] + 1
-
-        step()
-        out["decode"] = _profile(step, steps["decode"])
+    for way in ("graph", "eager"):
+        step = engine.steps(PROMPT, eager=way == "eager")
+        engine._static.prompts[PROMPT].copy_(torch.as_tensor(prompt))
+        out[f"prefill_{way}"] = _profile(step.prefill, steps["prefill"])
+        step.decode()
+        out[f"decode_{way}"] = _profile(step.decode, steps["decode"])
     for phase, r in out.items():
+        n = steps[phase.split("_")[0]]
         if r["idle_share"] is None:
             print(f"[profile] {model.cfg.name} {phase}: the profiler saw no device time "
                   f"(not measured)")
@@ -861,13 +885,15 @@ def phase_profile(engine, prompt) -> dict:
             print(f"[profile]   {row['device_ms']:.4f} ms  x{row['calls']}  {row['name'][:90]}")
         for name, calls in sorted(r["pinned_launches"].items()):
             kind = "pinned matmul" if name.startswith("pinned") else "flash attention"
-            print(f"[profile]   {kind} {name}: x{calls // steps[phase]}/step, "
+            print(f"[profile]   {kind} {name}: x{calls // n}/step, "
                   f"{r['pinned_ms'][name]:.4f} ms/step")
-    if out["prefill"]["idle_share"] is not None:
-        want = prefill_kernels(model.cfg)
-        check(out["prefill"]["pinned_launches"] == want,
-              f"{model.cfg.name} prefill: matmul and flash launches by kernel "
-              f"{out['prefill']['pinned_launches']}, the shapes give {want}")
+    want = prefill_kernels(model.cfg)
+    for way in ("graph", "eager"):
+        r = out[f"prefill_{way}"]
+        if r["idle_share"] is not None:
+            check(r["pinned_launches"] == want,
+                  f"{model.cfg.name} prefill ({way}): matmul and flash launches by kernel "
+                  f"{r['pinned_launches']}, the shapes give {want}")
     return out
 
 
@@ -881,88 +907,168 @@ def print_calibration(name, meas: dict, sms, why: str = "") -> None:
                  f"{max(jobs):.3f})" if jobs else ""))
 
 
-@contextlib.contextmanager
-def traced_matmuls(pool=None):
-    """Every pinned matmul launched inside is traced (into ``pool``, a
-    ``TracePool``, if given); yields the list of ((M, K), N, dtype,
-    (n_bands, first_sm), TileTrace) it fills.  The traces stay on the card
-    until :func:`check_on_gn` reads them."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.persistent_matmul import persistent_matmul_traced
+def print_independence(name, cal, sms) -> dict:
+    """The lag-1 autocorrelation and runs test of the calibration's job
+    walls in timing order, pooled and per SM count: the pWCET's fit takes
+    them as independent."""
+    from repro_torch.runtime.task_spec import independence
 
-    launches = []
+    pooled = independence(cal.job_ms)
+    per = {m: independence(cal.measured[m]["job_ms"]) for m in sms}
+    print(f"[rt] {name}: independence of the {len(cal.job_ms)} calibration job walls in timing "
+          f"order, which the pWCET assumes: lag-1 autocorrelation {pooled['lag1']:.4f}; runs "
+          f"above/below the median {pooled['runs']} against {pooled['expected']:.1f} expected, "
+          f"z {pooled['z']:.3f}, p {pooled['p']:.3g}; per SM count: " + "; ".join(
+              f"{m}: lag-1 {r['lag1']:.3f}, runs {r['runs']} of {r['expected']:.1f}, "
+              f"p {r['p']:.3g}" for m, r in per.items()))
+    return {"pooled": pooled, "per_sm_count": per}
+
+
+class GraphTrace:
+    """Traced pinned matmuls of the steps' graphs on GN SMs from SM 0.
+
+    Inside :func:`traced_graphs` the engine's prefill and decode steps are
+    captured with every pinned matmul traced into ``pool``, a
+    ``TracePool`` of one prefill's and one decode step's work units, and
+    each launch followed, in the graph, by a check of its units: ``seen``
+    gains one for each unit whose SM (``TileTrace.tile_sm``, which the
+    kernel writes at every replay) is the SM ``tile_of``'s map gives it on
+    the GN allocated SMs.  ``tile_hits`` counts the unit's computations
+    over every replay.  So after R replays of a graph, each of its units
+    was computed R times and on its own SM at each replay iff hits ==
+    seen == R.  ``launches`` lists ((M, K), N, dtype, (n_bands, first SM),
+    TileTrace, seen) per captured launch."""
+
+    def __init__(self, cfg, gn: int):
+        import torch
+        from repro_torch.kernels.persistent_matmul import TracePool, sm_ids, tile_grid
+
+        self.gn = gn
+        allowed = sm_ids(torch.device("cuda"))[:gn]
+        self.owners = {}
+        units = 0
+        for (m, k, n, dt), calls in matmul_calls(cfg).items():
+            dtype = getattr(torch, dt)
+            g = tile_grid(m, k, n, dtype, gn)
+            self.owners[(m, k, n, dtype)] = torch.tensor(
+                [allowed[u // (2 * g.per_lane)] for u in range(g.units)], dtype=torch.int32,
+                device="cuda")
+            units += g.units * replays_per_capture(calls, m)
+        self.pool = TracePool(units, "cuda")
+        self.seen = torch.zeros(units, dtype=torch.int32, device="cuda")
+        self.launches = []
+
+
+def replays_per_capture(calls_on_path: int, m: int) -> int:
+    """Launches of one (M, K, N) shape in one capture of the prefill and
+    decode steps, from its launches on the main path."""
+    return calls_on_path // (ROUNDS * (NEW_TOKENS if m == BATCH else 1))
+
+
+@contextlib.contextmanager
+def traced_graphs(engine, trace: GraphTrace):
+    """Inside, the engine's steps of PROMPT-token prompts on (GN, 0) replay
+    graphs captured with every pinned matmul traced (:class:`GraphTrace`);
+    the warm-up before each capture runs untraced.  The engine's graphs are
+    dropped on entry and on exit, so untraced steps are captured again."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.persistent_matmul import persistent_matmul, persistent_matmul_traced
 
     def traced(x, w, n_bands=None, first_sm=0):
-        got, trace = persistent_matmul_traced(x, w, n_bands, first_sm, pool)
-        launches.append((tuple(x.shape), w.shape[1], x.dtype, (n_bands, first_sm), trace))
+        if not torch.cuda.is_current_stream_capturing():
+            return persistent_matmul(x, w, n_bands, first_sm)
+        a = trace.pool.used
+        got, tile = persistent_matmul_traced(x, w, n_bands, first_sm, trace.pool)
+        seen = trace.seen[a:trace.pool.used]
+        owner = trace.owners.get((*x.shape, w.shape[1], x.dtype))
+        if owner is not None:
+            seen.add_(tile.tile_sm == owner)
+        trace.launches.append((tuple(x.shape), w.shape[1], x.dtype, (n_bands, first_sm), tile,
+                               seen))
         return got
 
+    engine.release_graphs()
     with mock.patch.object(ops, "persistent_matmul", traced):
-        yield launches
+        engine.capture(PROMPT, (trace.gn, 0))
+    try:
+        yield trace
+    finally:
+        engine.release_graphs()
 
 
-def check_on_gn(launches: list, gn: int, what: str) -> None:
+def check_on_gn(trace: GraphTrace, replays: dict, what: str) -> None:
     """Each traced launch carried n_bands = GN from SM 0 (the one service of
-    its front door) and ran every work unit once, on one of the GN
-    allocated SMs."""
-    import torch
+    its front door) and, over the R replays of its graph (``replays``:
+    {"prefill": R, "decode": R}), ran every work unit R times, each time on
+    its own one of the GN allocated SMs (:class:`GraphTrace`)."""
     from repro_torch.kernels.persistent_matmul import tile_grid
 
-    for (m, k), n, dtype, held, trace in launches:
+    gn = trace.gn
+    for (m, k), n, dtype, held, tile, seen in trace.launches:
+        r = replays["decode" if m == BATCH else "prefill"]
         check(held == (gn, 0), f"{what}: a matmul {m}x{k}x{n} ran on SMs {held}, not the "
               f"GN={gn} from SM 0 the service holds")
+        check((m, k, n, dtype) in trace.owners, f"{what}: a matmul {m}x{k}x{n} {dtype} "
+              f"off the path's shapes")
         g = tile_grid(m, k, n, dtype, gn)
-        hits = trace.tile_hits.cpu()
-        check(trace.tiles_done == g.units == hits.numel() and bool((hits == 1).all()),
-              f"{what}: matmul {m}x{k}x{n}: {trace.tiles_done} of {g.units} units done")
-        owner = torch.tensor([trace.allowed_sms[u // (2 * g.per_lane)] for u in range(g.units)],
-                             dtype=torch.int32)
-        check(len(trace.allowed_sms) == gn and torch.equal(trace.tile_sm.cpu(), owner),
-              f"{what}: matmul {m}x{k}x{n}: a unit ran off the {gn} allocated SMs")
+        hits, seen = tile.tile_hits.cpu(), seen.cpu()
+        check(tile.tiles_done == g.units == hits.numel() and bool((hits == r).all()),
+              f"{what}: matmul {m}x{k}x{n}: {tile.tiles_done} of {g.units} units done at the "
+              f"last replay, hits {hits.min().item()}..{hits.max().item()} over {r} replays")
+        check(len(tile.allowed_sms) == gn and bool((seen == r).all()),
+              f"{what}: matmul {m}x{k}x{n}: units on their own of the {gn} allocated SMs "
+              f"{seen.min().item()}..{seen.max().item()} times in {r} replays")
 
 
 def zeroed_counters() -> dict:
     """The kernels' launch counters, each set to 0."""
-    counters = launch_counters()
+    from repro_torch.serving.graphs import kernel_counters
+
+    counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     return counters
 
 
 def served_round(engine, prompt, gn: int, per_round: dict) -> dict:
-    """One round through ``generate`` with the engine registered, every
-    pinned matmul launched traced and held to the GN SMs (:func:`check_on_gn`).
-    The kernels' counts are set to 0 just before and read just after."""
+    """One round through ``generate`` with the engine registered, as graphs
+    captured with every pinned matmul traced and held to the GN SMs
+    (:func:`check_on_gn`).  The kernels' counts are set to 0 just before
+    and read just after."""
     import torch
 
-    counters = zeroed_counters()
-    with traced_matmuls() as launches:
+    with traced_graphs(engine, GraphTrace(engine.cfg, gn)) as trace:
+        counters = zeroed_counters()
         out, _ = engine.generate(prompt, max_new_tokens=NEW_TOKENS)
-    counts = {name: fn.launches for name, fn in counters.items()}
-    torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        torch.cuda.synchronize()
     check(out.shape == (BATCH, NEW_TOKENS), f"tokens shape {out.shape}")
     check(counts == per_round, f"registered round: launches {counts} != {per_round}")
-    check(len(launches) == per_round["persistent_matmul"],
-          f"registered round: {len(launches)} traced matmuls, {per_round['persistent_matmul']} "
-          f"launches")
-    check_on_gn(launches, gn, "registered round")
-    return {"launches": counts, "shapes": len({(s, n, d) for s, n, d, _, _ in launches})}
+    replays = {"prefill": 1, "decode": NEW_TOKENS}
+    traced = sum(replays["decode" if s[0] == BATCH else "prefill"]
+                 for s, *_ in trace.launches)
+    check(traced == per_round["persistent_matmul"],
+          f"registered round: {traced} traced matmuls replayed, "
+          f"{per_round['persistent_matmul']} launches")
+    check_on_gn(trace, replays, "registered round")
+    return {"launches": counts, "captured": len(trace.launches),
+            "shapes": len({(s, n, d) for s, n, d, *_ in trace.launches})}
 
 
-def profiled_round(engine, prompt) -> list[float]:
-    """One round through ``generate`` with each decode step in a profiler
-    window of its own (``profiled_ms``): each step's device-busy ms."""
+def profiled_round(engine, prompt, gn: int) -> list[float]:
+    """One round through ``generate`` with each decode step's replay in a
+    profiler window of its own (``profiled_ms``): each step's device-busy
+    ms."""
     from repro_torch.serving.engine import profiled_ms
 
-    model, steps = engine.model, []
-    decode_step = model.decode_step
+    decode = engine.steps(PROMPT, (gn, 0)).graphs[1]
+    replay, steps = decode.replay, []
 
-    def profiled(*args):
-        out, ms = profiled_ms(decode_step, *args)
-        steps.append(ms)
-        return out
+    def profiled():
+        steps.append(profiled_ms(replay)[1])
 
-    with mock.patch.object(model, "decode_step", profiled):
+    with mock.patch.object(decode, "replay", profiled):
         engine.generate(prompt, max_new_tokens=NEW_TOKENS)
     check(len(steps) == NEW_TOKENS and all(steps),
           f"profiled round: {len(steps)} decode steps with device time, {NEW_TOKENS} run")
@@ -978,8 +1084,9 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     SMs, measuring each granted GN that is not a measured count and asking
     again.  The fit's prediction is held out: t(GN) against GR̂(GN) from
     the fit without GN's points.  Then three rounds through ``generate``,
-    registered: traced (every matmul on the GN SMs), plain (the wall per
-    step), profiled (each decode step's device-busy time, held to GR̂(GN))."""
+    registered, each a replay of the steps' graphs on GN: traced (captured
+    again with every matmul traced on the GN SMs), plain (the step's time),
+    profiled (each decode step's device-busy time, held to GR̂(GN))."""
     from repro_torch.runtime import AdmissionController, ServingTaskSpec
     from repro_torch.runtime.task_spec import job_response_ms
     from repro_torch.serving.engine import CALIBRATION_STEPS
@@ -992,7 +1099,10 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
                            dominant="memory_s", vocab=cfg.vocab)
     cal = engine.calibrate(spec)
     calibrated = sorted(cal.measured)
+    print(f"[rt] {name}: the steps' graphs on {len(calibrated)} SM counts captured in "
+          f"{sum(cal.measured[m]['capture_s'] for m in calibrated):.2f} s before the calibration")
     print_calibration(name, cal.measured, calibrated)
+    independence = print_independence(name, cal, calibrated)
     target = n_sms // 3
     deadline = math.ceil(job_response_ms(cal.task(spec), target) * 1e3) / 1e3
     spec = dataclasses.replace(spec, deadline_ms=deadline, period_ms=2 * deadline)
@@ -1003,8 +1113,12 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     dec = engine.rt_register(ac, spec)
     register_s = time.perf_counter() - t0
     check(dec.admitted, f"{name}: not admitted ({dec.reason})")
-    print_calibration(name, cal.measured, sorted(set(cal.measured) - set(calibrated)),
-                      " (granted, then measured)")
+    granted = sorted(set(cal.measured) - set(calibrated))
+    if granted:
+        print(f"[rt] {name}: the steps' graphs on {granted} SMs (granted) captured in "
+              f"{sum(cal.measured[m]['capture_s'] for m in granted):.2f} s before their "
+              f"measurement")
+    print_calibration(name, cal.measured, granted, " (granted, then measured)")
     gn = dec.alloc[name]
     check(engine.sm_range == (gn, 0), f"{name}: holds SMs {engine.sm_range}, granted {gn}")
     check(1 < gn < n_sms, f"{name}: granted GN={gn}, not between 1 and {n_sms}")
@@ -1043,21 +1157,26 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     print(f"[rt] {name}: held out: t({gn})={t_gn:.4f} ms <= GR^({gn}) {held_out:.4f} ms from the "
           f"fit without {gn} SMs' points ({t_gn / held_out:.3f})")
 
+    eager_gn = graphs_match_eager(engine, [prompt], (gn, 0),
+                                  [engine.generate(prompt, max_new_tokens=NEW_TOKENS)[0]])
     per_round = {k: v // ROUNDS for k, v in expected_launches(cfg).items()}
     served = served_round(engine, prompt, gn, per_round)
-    print(f"[rt] {name}: registered round: launches {served['launches']}, every pinned matmul "
-          f"with n_bands={gn} and its work units on the {gn} allocated SMs "
-          f"({served['shapes']} shapes)")
+    print(f"[rt] {name}: registered round: launches {served['launches']} (a prefill and "
+          f"{NEW_TOKENS} decode replays of graphs holding {served['captured']} traced matmuls), "
+          f"every pinned matmul with n_bands={gn} and its work units on the {gn} allocated SMs "
+          f"at every replay ({served['shapes']} shapes)")
+    recapture_s = engine.rt_regraph()
     _, plain = engine.generate(prompt, max_new_tokens=NEW_TOKENS)
-    busy = profiled_round(engine, prompt)
+    busy = profiled_round(engine, prompt, gn)
     worst = max(busy)
     check(worst <= gr_hi, f"{name}: a decode step on GN={gn} SMs kept the device busy "
           f"{worst:.4f} ms > GR^ {gr_hi:.4f} ms")
-    print(f"[rt] {name}: later round on GN={gn} SMs: device-busy decode step mean "
+    print(f"[rt] {name}: later round on GN={gn} SMs (untraced graphs captured again by "
+          f"rt_regraph in {recapture_s:.2f} s): device-busy decode step mean "
           f"{sum(busy) / len(busy):.4f}, largest {worst:.4f} ms <= "
-          f"GR^ {gr_hi:.4f} ms ({worst / gr_hi:.3f}); wall per step "
-          f"{plain['decode_s_per_tok'] * 1e3:.4f} ms beside the CPU segment's bound "
-          f"{task.cpu_hi[1]:.4f} ms")
+          f"GR^ {gr_hi:.4f} ms ({worst / gr_hi:.3f}); a step's replay "
+          f"{plain['decode_s_per_tok'] * 1e3:.4f} ms (CUDA events) beside the CPU segment's "
+          f"bound {task.cpu_hi[1]:.4f} ms")
     executed = phase_engine(engine, ac, spec, prompt, gn, per_round)
     check(engine.rt_deregister() and engine.sm_range is None, f"{name}: deregister failed")
     seconds = time.perf_counter() - t_phase
@@ -1069,41 +1188,27 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
             "wall_based_gw_ms": wall_gw, "deadline_ms": deadline, "period_ms": 2 * deadline,
             "gn": gn, "register_s": register_s, "admit_ms": admit_ms, "gr_hi_ms": gr_hi,
             "held_out_gr_hi_ms": held_out, "job_r_hat_ms": float(job.response),
+            "independence": independence, "eager_on_gn": eager_gn,
             "served": served, "plain_decode_ms": plain["decode_s_per_tok"] * 1e3,
             "later_device_ms": busy, "worst_over_gr_hi": worst / gr_hi,
             "prefill_ms": cal.prefill_ms(), "cpu_segment0_ms": task.cpu_hi[0],
             "engine": executed, "seconds": seconds}
 
 
-def round_units(cfg, gn: int) -> int:
-    """Work units of one round's pinned matmuls (a prefill and NEW_TOKENS
-    decode steps) on GN SMs."""
-    import torch
-    from repro_torch.kernels.persistent_matmul import tile_grid
-
-    return sum(calls // ROUNDS * tile_grid(m, k, n, getattr(torch, dt), gn).units
-               for (m, k, n, dt), calls in matmul_calls(cfg).items())
-
-
 def run_jobs(engine, spec, prompt, gn: int) -> dict:
     """The registered service alone under the port's ``WallClockExecutor``
-    for ENGINE_JOBS jobs at its period, every pinned matmul traced
-    (:func:`traced_matmuls`) into a ``TracePool`` set up beforehand, so
-    tracing adds no allocation or fill to a job; the kernels' counts set to
-    0 just before and read just after.  The traces keep a few Python
-    objects a launch alive, so the run freezes the collector's view of
-    what lives before it (the model, the engine): a full collection in a
+    for ENGINE_JOBS jobs at its period, each a replay of the steps' graphs
+    captured beforehand with every pinned matmul traced
+    (:func:`traced_graphs`); the kernels' counts set to 0 just before and
+    read just after.  The run freezes the collector's view of what lives
+    before it (the model, the engine, the graphs): a full collection in a
     job then walks only what the jobs made.  Returns the executor's stats
-    and trace, the traced launches, each job's R (ms) and its own prefill
-    and mean decode step (CUDA events, ms) and the ms the collector ran in
-    it (host clock)."""
+    and trace, the :class:`GraphTrace`, the graphs' replays, each job's R
+    (ms) and its own prefill and mean decode step (CUDA events, ms) and
+    the ms the collector ran in it (host clock)."""
     import torch
-    from repro_torch.kernels.persistent_matmul import TracePool
     from repro_torch.runtime import WallClockExecutor
     from repro_torch.sched import EventTrace
-
-    units = round_units(engine.cfg, gn)
-    pool = TracePool((ENGINE_JOBS + 1) * units, engine.device)
 
     trace = EventTrace(us_per_unit=1e6, label=spec.name)
     executor = WallClockExecutor([engine.rt_service(spec, prompt)], trace=trace)
@@ -1122,23 +1227,28 @@ def run_jobs(engine, spec, prompt, gn: int) -> dict:
         walls.append((st["prefill_s"] * 1e3, st["decode_s_per_tok"] * 1e3, collector["ms"]))
         return out, st
 
-    counters = zeroed_counters()
-    t0 = time.perf_counter()
-    gc.freeze()
-    gc.callbacks.append(on_gc)
-    try:
-        with traced_matmuls(pool) as launches, mock.patch.object(engine, "generate", timed):
-            stats = executor.run((ENGINE_JOBS - 0.5) * spec.period_ms / 1e3)[spec.name]
-    finally:
-        gc.callbacks.remove(on_gc)
-        gc.unfreeze()
-    counts = {k: fn.launches for k, fn in counters.items()}
-    seconds = time.perf_counter() - t0
-    torch.cuda.synchronize()
+    with traced_graphs(engine, GraphTrace(engine.cfg, gn)) as graph_trace:
+        prefill, decode = engine.steps(PROMPT, (gn, 0)).graphs
+        captured = dict(engine._graphs)
+        counters = zeroed_counters()
+        t0 = time.perf_counter()
+        gc.freeze()
+        gc.callbacks.append(on_gc)
+        try:
+            with mock.patch.object(engine, "generate", timed):
+                stats = executor.run((ENGINE_JOBS - 0.5) * spec.period_ms / 1e3)[spec.name]
+        finally:
+            gc.callbacks.remove(on_gc)
+            gc.unfreeze()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        replays = {"prefill": prefill.replays, "decode": decode.replays}
+        check(engine._graphs == captured, f"{spec.name}: a job under the executor captured "
+              f"graphs: {sorted(engine._graphs)} after, {sorted(captured)} before")
     responses = [dict(e.meta)["response_s"] * 1e3 for e in trace.events if e.kind == "complete"]
-    return {"stats": stats, "trace": trace, "launches": launches, "counts": counts,
-            "responses": responses, "walls": walls, "seconds": seconds,
-            "traced_units": (pool.used, units)}
+    return {"stats": stats, "trace": trace, "graph_trace": graph_trace, "replays": replays,
+            "counts": counts, "responses": responses, "walls": walls, "seconds": seconds}
 
 
 def phase_engine(engine, ac, spec, prompt, gn: int, per_round: dict) -> dict:
@@ -1158,9 +1268,9 @@ def phase_engine(engine, ac, spec, prompt, gn: int, per_round: dict) -> dict:
 
     name = spec.name
     run = run_jobs(engine, spec, prompt, gn)
-    stats, trace, launches, counts = run["stats"], run["trace"], run["launches"], run["counts"]
+    stats, trace, counts = run["stats"], run["trace"], run["counts"]
     responses, walls, seconds = run["responses"], run["walls"], run["seconds"]
-    used, units = run["traced_units"]
+    graph_trace, replays = run["graph_trace"], run["replays"]
     r_hat, held = engine.rt_bound
     # R^ with the host's part at the largest calibration job, not its pWCET:
     # what the extrapolation carries
@@ -1181,10 +1291,13 @@ def phase_engine(engine, ac, spec, prompt, gn: int, per_round: dict) -> dict:
           f"{ENGINE_JOBS} asked")
     want = {k: v * jobs for k, v in per_round.items()}
     check(counts == want, f"{name}: executor jobs launched {counts}, the path gives {want}")
-    check(len(launches) == counts["persistent_matmul"] and used == jobs * units,
-          f"{name}: {len(launches)} traced matmuls, {counts['persistent_matmul']} launches, "
-          f"{used} traced units, {jobs} x {units} expected")
-    check_on_gn(launches, gn, f"{name} executor job")
+    check(replays == {"prefill": jobs, "decode": jobs * NEW_TOKENS},
+          f"{name}: {replays} graph replays in {jobs} jobs")
+    traced = sum(replays["decode" if s[0] == BATCH else "prefill"]
+                 for s, *_ in graph_trace.launches)
+    check(traced == counts["persistent_matmul"],
+          f"{name}: {traced} traced matmuls replayed, {counts['persistent_matmul']} launches")
+    check_on_gn(graph_trace, replays, f"{name} executor job")
 
     check(held == gn, f"{name}: holds GN={held} under the executor, granted {gn}")
     monitor = BoundMonitor().feed(executor_events(trace, {name: engine.rt_bound}))
@@ -1199,9 +1312,10 @@ def phase_engine(engine, ac, spec, prompt, gn: int, per_round: dict) -> dict:
     prefill_gn = max(engine.rt_calibration.measured[gn]["prefill_ms"])
     print(f"[engine] {name}: {jobs} jobs on SMs 0..{gn - 1} in {seconds:.1f} s, period "
           f"{spec.period_ms:.3f} ms; monitor: min headroom {health.min_headroom:.4f}, worst R "
-          f"{health.worst_response:.3f} ms, alerts {alerts or 'none'}; launches {counts}, every "
-          f"pinned matmul on the {gn} SMs; prefill wall on GN {prefill_gn:.3f} ms beside CPU "
-          f"segment 0 {task.cpu_hi[0]:.4f} ms")
+          f"{health.worst_response:.3f} ms, alerts {alerts or 'none'}; launches {counts} "
+          f"({replays['prefill']} prefill and {replays['decode']} decode replays), every pinned "
+          f"matmul on the {gn} SMs at every replay; prefill wall on GN {prefill_gn:.3f} ms beside "
+          f"CPU segment 0 {task.cpu_hi[0]:.4f} ms")
 
     ts, alloc = ac.current_taskset(), ac.current_alloc_list()
     horizon = SIM_PERIODS * spec.period_ms

@@ -122,6 +122,9 @@ def main():
         verdict(qwen, engine.rt_register(ac, qwen))
     if not engine.rt_registered:
         raise SystemExit("chat-qwen was not admitted")
+    # the other services were admitted on the controller itself, which may
+    # have moved chat-qwen's SMs: capture its steps where it holds them now
+    engine.rt_regraph()
 
     sim = simulate(ac.current_taskset(), ac.current_alloc_list(), horizon=5000.0, seed=0)
     print(f"\nruntime check over 5 s: misses={sim.misses} jobs={sim.jobs}")

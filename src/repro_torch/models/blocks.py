@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.models.blocks`` for the attn and mamba mixers and
 the mlp and moe ffns.  Caches are per-layer dicts: ``{"kv": KVCache}`` for
-attention, ``{"ssm": MambaState}`` for Mamba.  The MoE aux loss is dropped
-in serving.  xLSTM mixers raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+attention, ``{"ssm": MambaState}`` for Mamba; prefill and decode write
+into their tensors in place, never replacing them.  The MoE aux loss is
+dropped in serving.  xLSTM mixers raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -65,10 +66,12 @@ def init_block(block: Block, gen: torch.Generator) -> None:
 
 def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device):
-    """Zero-initialized per-layer cache for decode."""
+    """Zero-initialized per-layer cache for decode.  The Mamba conv buffer
+    holds ``dtype``, as a prefill leaves it (JAX's tail of the prompt's
+    activations)."""
     _check_spec(spec)
     if spec.mixer == "mamba":
-        return {"ssm": mb.init_mamba_state(cfg, batch, device)}
+        return {"ssm": mb.init_mamba_state(cfg, batch, device, dtype)}
     kvshape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"kv": attn.KVCache(
         k=torch.zeros(kvshape, dtype=dtype, device=device),
@@ -90,7 +93,8 @@ def _ffn_apply(p: Block, cfg, spec: LayerSpec, x):
 def block_prefill(p: Block, cfg, spec: LayerSpec, x, cache,
                   window: Optional[int] = None):
     """Runs the block over the prompt; writes the prompt's K/V into the
-    cache buffer at offset 0 (in place), or sets the final Mamba state."""
+    cache buffer at offset 0, or the final Mamba state into the cache's
+    state tensors (in place)."""
     h = apply_norm(p.norm1, x, cfg.norm)
     if spec.mixer == "attn":
         y, kv = attn.attention_prefill(p.mixer, cfg, h, window)
@@ -99,7 +103,9 @@ def block_prefill(p: Block, cfg, spec: LayerSpec, x, cache,
         buf.k[:, :s] = kv.k.to(buf.k.dtype)
         buf.v[:, :s] = kv.v.to(buf.v.dtype)
     else:
-        y, cache["ssm"] = mb.mamba_prefill(p.mixer, cfg, h)
+        y, final = mb.mamba_prefill(p.mixer, cfg, h)
+        for buf, value in zip(cache["ssm"], final):
+            buf.copy_(value)
     x, _ = _ffn_apply(p, cfg, spec, x + y)
     return x, cache
 
@@ -110,6 +116,6 @@ def block_decode(p: Block, cfg, spec: LayerSpec, x, cache, cache_len,
     if spec.mixer == "attn":
         y, _ = attn.attention_decode(p.mixer, cfg, h, cache["kv"], cache_len, window)
     else:
-        y, cache["ssm"] = mb.mamba_decode(p.mixer, cfg, h, cache["ssm"])
+        y, _ = mb.mamba_decode(p.mixer, cfg, h, cache["ssm"])
     x, _ = _ffn_apply(p, cfg, spec, x + y)
     return x, cache

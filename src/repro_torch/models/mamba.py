@@ -6,7 +6,9 @@ as the JAX package does; each chunk's discretized ``abar``/``bx`` go to
 with the state carried from the chunk before, so at most one chunk's
 ``[B, chunk, d_inner, d_state]`` exists at a time.  Decode updates a
 ``[B, d_inner, d_state]`` SSM state and a rolling ``[B, d_conv-1,
-d_inner]`` conv buffer in plain PyTorch, as in JAX.
+d_inner]`` conv buffer in plain PyTorch, as in JAX, but in place: the new
+values are written into the state's own tensors, so a captured decode
+step reads and writes the same addresses at every replay.
 """
 from __future__ import annotations
 
@@ -128,7 +130,8 @@ def init_mamba_state(cfg, batch: int, device, dtype=torch.float32) -> MambaState
 
 
 def mamba_decode(p: Mamba, cfg, x, state: MambaState):
-    """One-token step, x [B, 1, D] -> ([B, 1, D], new state)."""
+    """One-token step, x [B, 1, D] -> ([B, 1, D], state): the new conv
+    buffer and SSM state are copied into ``state``'s tensors."""
     di = cfg.d_inner
     xi = dense(x[:, 0], p.in_proj)
     xz, z = xi[..., :di], xi[..., di:]  # [B, di]
@@ -137,12 +140,13 @@ def mamba_decode(p: Mamba, cfg, x, state: MambaState):
     window = torch.cat([state.conv, xz[:, None].to(state.conv.dtype)], dim=1)
     ptype = torch.promote_types(window.dtype, p.conv_w.dtype)
     xc = F.silu(torch.einsum("bcd,cd->bd", window.to(ptype), p.conv_w.to(ptype)) + p.conv_b)
-    new_conv = window[:, 1:]
+    state.conv.copy_(window[:, 1:])
 
     abar, bx, c_t = _ssm_params(p, xc)  # [B, di, ds]
     h = state.ssm * abar + bx
+    state.ssm.copy_(h)
     y = torch.einsum("bds,bs->bd", h, c_t.float())
     y = y + xc.float() * p.d_skip
     y = y.to(x.dtype) * F.silu(z)
     out = dense(y, p.out_proj)[:, None]
-    return out, MambaState(conv=new_conv, ssm=h)
+    return out, state

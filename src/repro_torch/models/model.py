@@ -8,12 +8,15 @@ position ``pos`` of repeat ``r``).  Parameter names follow the JAX tree:
 ``embed.w``, ``final_norm.w``, ``layers.<i>.mixer.wq``, ... .
 
 Entry points:
-  init_params(seed) / init_caches(batch, max_len)
+  init_params(seed) / init_caches(batch, max_len) / reset_caches(caches, cache_len)
   prefill(tokens, caches)                  -> (last_logits, caches)
   decode_step(token, caches, cache_len)    -> (logits, caches)
 
-Caches are written in place.  Every projection runs on all SMs; the MoE
-aux loss is dropped in serving; training waits for a later slice.
+Caches are written in place: their tensors keep their addresses from the
+first prefill to the last decode step, so a serving engine can allocate
+them once and capture each step as a CUDA graph over them.  Every
+projection runs on all SMs; the MoE aux loss is dropped in serving;
+training waits for a later slice.
 """
 from __future__ import annotations
 
@@ -78,6 +81,17 @@ class Model(nn.Module):
                              self.device)
             for i in range(self.cfg.n_layers)
         ]
+
+    @torch.no_grad()
+    def reset_caches(self, caches: list[dict], cache_len: torch.Tensor) -> None:
+        """Zero what a new job must not inherit from the last: every Mamba
+        conv buffer and SSM state, and ``cache_len``.  KV slots at or past
+        a row's ``cache_len`` are masked in decode, so they keep their
+        values."""
+        for cache in caches:
+            for t in cache.get("ssm", ()):
+                t.zero_()
+        cache_len.zero_()
 
     # ----------------------------------------------------------------- embed
 

@@ -7,6 +7,10 @@ token-major slots with overflow dropped, SwiGLU experts batched over
 (row, expert), and the Switch load-balance loss.  Dispatch and combine are
 index copies and gathers where JAX uses one-hot einsums; each kept
 (row, token, choice) fills exactly one slot, so the values are the same.
+A dropped choice goes to one spare slot past the buffer, whose output
+reads as zero: no index depends on how many choices were kept, so the
+device never reports a count to the host and a step can be captured as a
+CUDA graph.
 The router goes through ``layers.dense`` like every projection; the
 expert products are batched ``torch.matmul``s, as JAX leaves them to XLA.
 """
@@ -77,24 +81,26 @@ def moe_ffn(p: MoE, cfg, x):
     pos = ((torch.cumsum(onehot, dim=1) - onehot) * onehot).sum(-1)  # [B, S*k]
     keep = pos < cap
 
-    # dispatch: buffer [B, E, C, D], one row of x per kept slot
+    # dispatch: buffer [B, E, C, D], one row of x per kept slot; the dropped
+    # choices all write the spare slot b*e*cap, which no expert reads
     rows = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
-    slot = ((rows * e + flat_expert) * cap + pos)[keep]
+    spare = b * e * cap
+    slot = torch.where(keep, (rows * e + flat_expert) * cap + pos, spare).reshape(-1)
     token = (torch.arange(s * k, device=x.device) // k)[None].expand(b, s * k)
-    src = (rows * s + token)[keep]
-    buf = x.new_zeros((b * e * cap, d))
+    src = (rows * s + token).reshape(-1)
+    buf = x.new_zeros((spare + 1, d))
     buf[slot] = x.reshape(b * s, d)[src]
 
     # SwiGLU experts, batched over (row, expert): [E, B*C, D] @ [E, D, F]
-    buf = buf.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    buf = buf[:spare].reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
     gate = F.silu(torch.matmul(buf, p.w_gate))
     up = torch.matmul(buf, p.w_up)
     out_buf = torch.matmul(gate * up, p.w_down)  # [E, B*C, D]
-    out_buf = out_buf.reshape(e, b, cap, d).transpose(0, 1).reshape(b * e * cap, d)
+    out_buf = out_buf.reshape(e, b, cap, d).transpose(0, 1).reshape(spare, d)
 
-    # combine: each kept choice's expert output times its gate, in f32
-    picked = x.new_zeros((b * s * k, d), dtype=torch.float32)
-    picked[keep.reshape(-1)] = out_buf[slot].float()
+    # combine: each kept choice's expert output times its gate, in f32; the
+    # spare slot's output is zero
+    picked = torch.cat([out_buf, out_buf.new_zeros((1, d))])[slot].float()
     weights = gate_vals.to(x.dtype).float().reshape(b * s * k, 1)
     y = (picked * weights).reshape(b, s, k, d).sum(2).to(x.dtype)
 

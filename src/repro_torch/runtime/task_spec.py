@@ -48,7 +48,8 @@ from repro_torch.core import (INTERLEAVE_RATIO_MAX, GpuSegment, RTTask, TaskSet,
 from repro_torch.roofline import HBM_BW
 
 __all__ = ["ServingTaskSpec", "serving_task_to_rt", "StepFit", "fit_step",
-           "measured_task_to_rt", "pwcet_ms", "DecodeCalibration", "job_response_ms"]
+           "measured_task_to_rt", "pwcet_ms", "lag1", "runs_test", "independence",
+           "DecodeCalibration", "job_response_ms"]
 
 PCIE_BW = 16e9          # bytes/s host<->device
 HOST_TOKENIZE_US_PER_TOK = 0.3
@@ -199,6 +200,34 @@ def pwcet_ms(walls: Sequence[float]) -> float:
     mu = float(np.mean(maxima)) - np.euler_gamma * beta
     p_block = -math.expm1(PWCET_BLOCK * math.log1p(-PWCET_EXCEEDANCE))
     return max(mu - beta * math.log(-math.log1p(-p_block)), float(x.max()))
+
+
+def lag1(walls: Sequence[float]) -> float:
+    """Lag-1 autocorrelation of ``walls`` in the order given."""
+    x = np.asarray(walls, dtype=np.float64)
+    d = x - x.mean()
+    return float(np.dot(d[:-1], d[1:]) / np.dot(d, d))
+
+
+def runs_test(walls: Sequence[float]) -> dict:
+    """Wald-Wolfowitz runs of ``walls`` above and below their median (walls
+    equal to it dropped): the runs, the runs expected of independent walls,
+    z and the two-sided p."""
+    x = np.asarray(walls, dtype=np.float64)
+    above = x[x != np.median(x)] > np.median(x)
+    n1, n2 = int(above.sum()), int((~above).sum())
+    runs = 1 + int(np.count_nonzero(above[1:] != above[:-1]))
+    n = n1 + n2
+    expected = 2.0 * n1 * n2 / n + 1.0
+    var = 2.0 * n1 * n2 * (2.0 * n1 * n2 - n) / (n * n * (n - 1))
+    z = (runs - expected) / math.sqrt(var) if var > 0 else math.nan
+    return {"runs": runs, "expected": expected, "z": z, "p": math.erfc(abs(z) / math.sqrt(2))}
+
+
+def independence(walls: Sequence[float]) -> dict:
+    """What :func:`pwcet_ms` assumes of its walls, in their timing order:
+    :func:`lag1` and :func:`runs_test`."""
+    return {"lag1": lag1(walls), **runs_test(walls)}
 
 
 @dataclasses.dataclass

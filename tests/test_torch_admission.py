@@ -259,18 +259,25 @@ def test_card_registration_measures_the_granted_gn(monkeypatch):
     """The card's chain on synthetic measurements: the task comes from the
     calibration, and the engine measures each granted GN that is not a
     measured count, refits and asks again, until the GN it holds is one.
-    The admitted task's GR̂(GN) then bounds the step measured at GN."""
+    The admitted task's GR̂(GN) then bounds the step measured at GN, and
+    the steps are captured on the granted SMs once, after the last
+    admission."""
     gn_total = 132
     eng = _small_engine()
     monkeypatch.setattr(eng, "device", torch.device("cuda"))
-    asked = []
+    asked, captured = [], []
 
     def measure(prompts, sms):
         asked.append(tuple(sms))
         assert prompts.shape == (2, 8)
         return _measured(sms)
 
+    def capture(seq_len, held=(None, 0)):
+        captured.append((seq_len, held))
+        return 0.0
+
     monkeypatch.setattr(eng, "measure_decode", measure)
+    monkeypatch.setattr(eng, "capture", capture)
     spec = dataclasses.replace(_spec(), deadline_ms=1e9, period_ms=2e9)
     cal = DecodeCalibration(2, 8, 2, _measured(calibration_sms(gn_total)), JOBS_MS)
     eng.rt_calibration = cal
@@ -281,6 +288,7 @@ def test_card_registration_measures_the_granted_gn(monkeypatch):
     assert dec.admitted
     gn = dec.alloc[spec.name]
     assert gn in cal.measured and eng.rt_calibration is cal
+    assert captured == [(8, (gn, 0))]
     assert all(len(a) == 1 and a[0] not in calibration_sms(gn_total) for a in asked)
     assert eng.rt_task == cal.task(spec) == ac.dynamic.task(spec.name)
     assert cal.gr_hi(spec, gn) >= max(cal.measured[gn]["device_ms"])

@@ -2,13 +2,16 @@
 that hands an executor run to ``BoundMonitor``.
 
 Executor: twins of ``tests/test_runtime.py``'s executor tests against the
-port's copy.  Task: the measured task's first CPU segment carries the
-largest prefill wall and its CPU segments together the pWCET of the
-whole calibration jobs, so the job's R̂ covers one prefill and then
-``new_tokens`` decode steps.  Service: ``ServingEngine.rt_service`` on a
-CPU engine runs whole ``generate`` jobs under the executor, and
-``executor_events`` gives the monitor each job's R in ms beside the
-controller's certified R̂.  No test draws a seed at run time.
+port's copy, each twice: on the wall clock with spinning jobs, as the
+reference's tests run, and on a fake clock that moves only when a job
+runs or the executor sleeps (deterministic, whatever the host's load).  Task:
+the measured task's first CPU segment carries the largest prefill wall
+and its CPU segments together the pWCET of the whole calibration jobs,
+so the job's R̂ covers one prefill and then ``new_tokens`` decode steps.
+Service: ``ServingEngine.rt_service`` on a CPU engine runs whole
+``generate`` jobs under the executor, and ``executor_events`` gives the
+monitor each job's R in ms beside the controller's certified R̂.  No
+test draws a seed at run time.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from repro_torch.kernels import ops
 from repro_torch.obs import BoundMonitor
 from repro_torch.runtime import (AdmissionController, Service, ServingTaskSpec,
                                  WallClockExecutor, serving_task_to_rt)
+from repro_torch.runtime import executor as executor_module
 from repro_torch.runtime.task_spec import (PWCET_BLOCK, PWCET_EXCEEDANCE, DecodeCalibration,
                                            job_response_ms, measured_task_to_rt, pwcet_ms)
 from repro_torch.sched import DynamicController, EventTrace
@@ -32,22 +36,65 @@ from repro_torch.serving import engine as serving_engine
 from repro_torch.serving.engine import executor_events
 
 
-def _spin(cost_s):
+def _spin(cost_s, clock=None):
+    """A job of ``cost_s`` seconds: on ``clock`` (a :class:`_FakeClock`) if
+    given, else spun on the wall clock."""
     def job():
+        if clock is not None:
+            clock.sleep(cost_s)
+            return
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < cost_s:
             pass
     return job
 
 
+class _FakeClock:
+    """``time.perf_counter`` and ``time.sleep`` for the executor: time
+    passes only in ``sleep``."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self) -> float:
+        return self.now
+
+    def sleep(self, seconds: float) -> None:
+        self.now += seconds
+
+
+@pytest.fixture
+def fake_clock(monkeypatch):
+    """A :class:`_FakeClock` the executor runs on."""
+    fake = _FakeClock()
+    monkeypatch.setattr(executor_module, "time", fake)
+    return fake
+
+
 # ------------------------------------------------------------ executor twins
 
 
 def test_executor_runs_services_by_deadline_priority():
+    _runs_services_by_deadline_priority(None)
+
+
+def test_executor_runs_services_by_deadline_priority_on_a_fake_clock(fake_clock):
+    _runs_services_by_deadline_priority(fake_clock)
+
+
+def test_executor_mid_run_join_then_leave_completes_inflight_jobs():
+    _mid_run_join_then_leave_completes_inflight_jobs(None)
+
+
+def test_executor_mid_run_join_then_leave_completes_inflight_jobs_on_a_fake_clock(fake_clock):
+    _mid_run_join_then_leave_completes_inflight_jobs(fake_clock)
+
+
+def _runs_services_by_deadline_priority(clock):
     calls = {"a": 0, "b": 0}
 
     def mk(name, cost_s):
-        spin = _spin(cost_s)
+        spin = _spin(cost_s, clock)
 
         def job():
             calls[name] += 1
@@ -64,10 +111,10 @@ def test_executor_runs_services_by_deadline_priority():
     assert calls == {"a": stats["a"]["completed"], "b": stats["b"]["completed"]}
 
 
-def test_executor_mid_run_join_then_leave_completes_inflight_jobs():
+def _mid_run_join_then_leave_completes_inflight_jobs(clock):
     trace = EventTrace(us_per_unit=1e6)
-    base = Service("base", period_s=0.02, deadline_s=0.02, run_job=_spin(0.001))
-    joiner = Service("joiner", period_s=0.04, deadline_s=0.08, run_job=_spin(0.03))
+    base = Service("base", period_s=0.02, deadline_s=0.02, run_job=_spin(0.001, clock))
+    joiner = Service("joiner", period_s=0.04, deadline_s=0.08, run_job=_spin(0.03, clock))
     ex = WallClockExecutor([base], trace=trace)
     stats = ex.run(duration_s=0.3, events=[
         (0.05, lambda e: e.add_service(joiner)),
