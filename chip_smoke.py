@@ -8,6 +8,11 @@ Runs from the repository root and imports only ``repro_torch`` (from
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the three hand kernels with nvcc into ``build/``, timed;
+   analysis: Algorithm 2 over the card's SMs on Table-1 task sets (N = 5,
+   M = 5, utilisations 0.6 and 1.0, seeds 0-2, ``max_nodes`` 100,000),
+   with the numpy engine on the host and the torch engine on the card:
+   identical decisions and candidates tried, every fixed point within
+   1e-9, fixed points run on the card, each engine's candidates/s;
 3. qwen3-0.6b path:
    a. kernels against their plain PyTorch versions on the card, at the
       path's shapes: persistent_matmul (bf16 and f32, n_bands in {1, 8,
@@ -41,8 +46,11 @@ Runs from the repository root and imports only ``repro_torch`` (from
       walls measured there (graph replays), the independence of the job
       walls (lag-1 autocorrelation, runs test), the step fitted
       (t(m) <= A/m + L: GW = 2A + L, GL = L; the largest prefill wall goes
-      into the first CPU segment, the rest of the jobs' pWCET into the
-      decode CPU segments), the
+      into the first CPU segment), each job's host part (its wall less the
+      smallest prefill wall and 16 smallest device-busy steps on its count)
+      and its independence, each count's pWCET of it and the largest, which
+      the decode CPU segments carry, the job's R^ beside the pooled rule's
+      on the same calibration (the new one must be the smaller), the
       task admitted by a port AdmissionController over the card's SMs
       (1 < GN < all), the replays' tokens on GN against the eager path's,
       then rounds through ``generate`` registered: graphs captured with
@@ -102,6 +110,11 @@ SCAN_TOL = 1e-4          # rtol = atol, as tests/test_kernels.py: the same f32 F
 LOGITS_NOISE_FACTOR = 2.0
 ENGINE_JOBS = 4      # whole jobs each cell's service runs under the executor
 SIM_PERIODS = 20     # the simulator's horizon, in periods of the service
+# Algorithm 2 as a user admitting services onto the card runs it: Table-1
+# task sets of N tasks of M subtasks, over every SM of the card
+ANALYSIS_SETS = [(util, seed) for util in (0.6, 1.0) for seed in range(3)]
+ANALYSIS_TASKS, ANALYSIS_SUBTASKS, ANALYSIS_NODES = 5, 5, 100_000
+ANALYSIS_TOL = 1e-9      # every fixed point's R^, torch engine against the numpy engine
 
 
 class SmokeFailure(Exception):
@@ -297,6 +310,94 @@ def phase_build() -> dict:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name} {kernel}: {line.strip()}")
     return {"seconds": seconds, "nvcc": logs}
+
+
+def phase_analysis(n_sms: int, smi: str) -> dict:
+    """Algorithm 2 (``grid_search_frontier``, tightened, ``max_nodes``
+    ANALYSIS_NODES) over the card's SMs on Table-1 task sets, once with the
+    numpy engine on the host and once with the torch engine on the card.
+    Both searches make the same calls in the same order, so every fixed
+    point the torch engine answers is held to the numpy engine's answer to
+    the same call (ANALYSIS_TOL; inf where it is inf), and the decisions,
+    allocations and candidates tried must be identical.  Fails if the
+    torch engine ran no fixed point on the card."""
+    import numpy as np
+    from repro_torch.core import GeneratorConfig, generate_taskset
+    from repro_torch.core.rta_batch import _engine, grid_search_frontier
+
+    engines = {"numpy": _engine("numpy"), "torch": _engine("torch")}
+    check(engines["torch"].device.type == "cuda", "[analysis] the torch engine is not on the card")
+    answers = {name: [] for name in engines}
+
+    def recording(name):
+        real = engines[name].fixed_point_batch
+
+        def fixed_point_batch(*args, **kw):
+            out = real(*args, **kw)
+            answers[name].append(np.array(out))
+            return out
+        return fixed_point_batch
+
+    before = dict(engines["torch"].fixed_points)
+    seconds, tried, sets = {"numpy": 0.0, "torch": 0.0}, {"numpy": 0, "torch": 0}, []
+    with contextlib.ExitStack() as stack:
+        for name, engine in engines.items():
+            stack.enter_context(mock.patch.object(engine, "fixed_point_batch", recording(name)))
+        for util, seed in ANALYSIS_SETS:
+            ts = generate_taskset(np.random.default_rng(seed), util, GeneratorConfig(
+                n_tasks=ANALYSIS_TASKS, n_subtasks=ANALYSIS_SUBTASKS))
+            res, took = {}, {}
+            for name in engines:
+                for v in answers.values():
+                    v.clear()
+                t0 = time.perf_counter()
+                res[name] = grid_search_frontier(ts, n_sms, tightened=True,
+                                                 max_nodes=ANALYSIS_NODES, backend=name)
+                took[name] = time.perf_counter() - t0
+                seconds[name] += took[name]
+                tried[name] += res[name].candidates_tried
+                if name == "numpy":
+                    want = list(answers["numpy"])
+            a, b = res["numpy"], res["torch"]
+            what = f"[analysis] utilisation {util}, seed {seed}"
+            check((a.schedulable, a.alloc, a.candidates_tried)
+                  == (b.schedulable, b.alloc, b.candidates_tried),
+                  f"{what}: numpy {a.schedulable} {a.alloc} after {a.candidates_tried} "
+                  f"candidates, torch {b.schedulable} {b.alloc} after {b.candidates_tried}")
+            got = answers["torch"]
+            check(len(got) == len(want), f"{what}: {len(want)} fixed-point calls on numpy, "
+                  f"{len(got)} on torch")
+            err, n_fp = 0.0, 0
+            for x, y in zip(want, got):
+                check(x.shape == y.shape and np.array_equal(np.isinf(x), np.isinf(y)),
+                      f"{what}: a fixed point is inf on one engine only")
+                fin = np.isfinite(x)
+                n_fp += x.size
+                if fin.any():
+                    err = max(err, float(np.max(np.abs(x[fin] - y[fin]))))
+            if a.schedulable:
+                err = max(err, max(abs(x - y) for x, y in zip(a.analysis.responses,
+                                                               b.analysis.responses)))
+            check(err <= ANALYSIS_TOL, f"{what}: R^ differs by {err:.3g} > {ANALYSIS_TOL:g}")
+            sets.append({"util": util, "seed": seed, "schedulable": a.schedulable,
+                         "alloc": a.alloc, "candidates_tried": a.candidates_tried,
+                         "fixed_points": n_fp, "calls": len(want), "max_abs_err": err,
+                         "seconds": took})
+            print(f"[analysis] N={ANALYSIS_TASKS} M={ANALYSIS_SUBTASKS} utilisation {util} seed "
+                  f"{seed} on {n_sms} SMs: schedulable {a.schedulable} {a.alloc or ''} after "
+                  f"{a.candidates_tried} candidates (both engines); {len(want)} batched calls, "
+                  f"{n_fp} fixed points, largest R^ difference {err:.3g}; numpy "
+                  f"{took['numpy']:.3f} s, torch {took['torch']:.3f} s")
+    ran = {k: engines["torch"].fixed_points[k] - before[k] for k in before}
+    check(ran["device"] > 0, "[analysis] the torch engine ran no fixed point on the card")
+    rate = {k: tried[k] / seconds[k] for k in engines}
+    print(f"[analysis] {smi}: {len(ANALYSIS_SETS)} task sets, {tried['numpy']} candidates: "
+          f"numpy (host) {seconds['numpy']:.3f} s, {rate['numpy']:.0f} candidates/s; torch "
+          f"(card) {seconds['torch']:.3f} s, {rate['torch']:.0f} candidates/s; the torch "
+          f"engine ran {ran['device']} fixed points on the card and handed {ran['numpy']} "
+          f"to numpy")
+    return {"sets": sets, "seconds": seconds, "candidates": tried, "candidates_per_s": rate,
+            "torch_fixed_points": ran}
 
 
 def check_matmul(m, k, n, dtype, gen, band_counts) -> float:
@@ -924,6 +1025,42 @@ def print_independence(name, cal, sms) -> dict:
     return {"pooled": pooled, "per_sm_count": per}
 
 
+def pooled_task(spec, cal):
+    """``spec``'s task under the pooled rule, for comparison: the pWCET of
+    every count's job walls pooled in timing order, less the largest
+    prefill wall, spread over the decode CPU segments, so the CPU segments
+    carry device time the GPU segments bound again."""
+    from repro_torch.runtime.task_spec import measured_task_to_rt, pwcet_ms
+
+    host_step = max(pwcet_ms(cal.job_ms) - cal.prefill_ms(), 0.0) / NEW_TOKENS
+    return measured_task_to_rt(spec, cal.fit(), host_step, cal.prefill_ms())
+
+
+def print_host_parts(name, cal, sms) -> dict:
+    """Each count's host parts (a job's wall less the lower bound of its
+    device part there), their independence in timing order, each count's
+    pWCET and the largest, which the decode CPU segments carry."""
+    from repro_torch.runtime.task_spec import independence
+
+    pwcets, out = cal.host_pwcets_ms(), {}
+    for m in sms:
+        row, host = cal.measured[m], cal.host_parts_ms(m)
+        ind, seen = independence(host), row["device_activities"]
+        out[m] = {"host_ms": host.tolist(), "pwcet_ms": pwcets[m], "independence": ind,
+                  "device_lower_ms": cal.device_lower_ms(m)}
+        print(f"[rt] {name}: host part of the {len(host)} jobs on {m} SMs (wall less "
+              f"{cal.device_lower_ms(m):.3f} ms: the smallest prefill wall and {NEW_TOKENS} x the "
+              f"smallest device-busy step of the {seen.count(max(seen))} profiles with all "
+              f"{max(seen)} device activities, of {len(seen)}: activities {seen}): "
+              f"{' '.join(f'{h:.2f}' for h in host)} ms; lag-1 {ind['lag1']:.3f}, runs "
+              f"{ind['runs']} of {ind['expected']:.1f}, p {ind['p']:.3g}; pWCET {pwcets[m]:.3f} ms")
+    worst = max(pwcets, key=pwcets.get)
+    print(f"[rt] {name}: host bound, the largest count's pWCET: {cal.host_bound_ms():.3f} ms "
+          f"(on {worst} SMs; per count " + ", ".join(f"{m}: {v:.3f}" for m, v in pwcets.items())
+          + f"), {cal.host_step_ms():.4f} ms on each decode CPU segment")
+    return {"per_sm_count": out, "host_bound_ms": cal.host_bound_ms(), "largest_at": worst}
+
+
 class GraphTrace:
     """Traced pinned matmuls of the steps' graphs on GN SMs from SM 0.
 
@@ -1100,14 +1237,19 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     cal = engine.calibrate(spec)
     calibrated = sorted(cal.measured)
     print(f"[rt] {name}: the steps' graphs on {len(calibrated)} SM counts captured in "
-          f"{sum(cal.measured[m]['capture_s'] for m in calibrated):.2f} s before the calibration")
+          f"{sum(cal.measured[m]['capture_s'] for m in calibrated):.2f} s, each just before its "
+          f"count's measurements")
     print_calibration(name, cal.measured, calibrated)
     independence = print_independence(name, cal, calibrated)
+    host_parts = print_host_parts(name, cal, calibrated)
     target = n_sms // 3
-    deadline = math.ceil(job_response_ms(cal.task(spec), target) * 1e3) / 1e3
-    spec = dataclasses.replace(spec, deadline_ms=deadline, period_ms=2 * deadline)
+    r_hat_target = job_response_ms(cal.task(spec), target)
+    pooled_target = job_response_ms(pooled_task(spec, cal), target)
+    deadline = math.ceil(r_hat_target * 1e3) / 1e3
+    far, spec = spec, dataclasses.replace(spec, deadline_ms=deadline, period_ms=2 * deadline)
     print(f"[rt] {name}: deadline {deadline:.3f} ms, the job's R^ on {target} of {n_sms} SMs "
-          f"(calibration fit), period {2 * deadline:.3f} ms")
+          f"(calibration fit, host part per SM count), period {2 * deadline:.3f} ms; the pooled "
+          f"rule's R^ there on the same calibration {pooled_target:.3f} ms")
     ac = AdmissionController(gn_total=n_sms)
     t0 = time.perf_counter()
     dec = engine.rt_register(ac, spec)
@@ -1135,6 +1277,13 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     check(t_gn <= held_out, f"{name}: the fit without {gn} SMs' points predicts GR^ "
           f"{held_out:.4f} ms < the step measured there, {t_gn:.4f} ms")
     job = next(t for t in dec.result.analysis.tasks if t.name == name)
+    r_hat_far = job_response_ms(cal.task(far), gn)
+    pooled_gn = job_response_ms(pooled_task(far, cal), gn)
+    check(r_hat_far < pooled_gn, f"{name}: the job's R^ on GN={gn} {r_hat_far:.3f} ms is not "
+          f"below the pooled rule's {pooled_gn:.3f} ms")
+    check(all(job_response_ms(cal.task(far), m) >= max(cal.measured[m]["job_ms"])
+              for m in calibrated), f"{name}: the job's R^ on a calibrated count is below a "
+          f"calibration wall there")
     wall_gw = decode_s * 1e3 * 2.0 * n_sms
     print(f"[rt] {name}: fit of the device-busy decode step (largest of {CALIBRATION_STEPS}) "
           f"t(m) <= A/m + L: " + ", ".join(
@@ -1144,12 +1293,14 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
           f"alpha={seg.alpha}, from device-busy time only (a wall-based GW, step "
           f"{decode_s * 1e3:.4f} ms x 2 x {n_sms} SMs, would be {wall_gw:.4f} ms); CPU segment "
           f"per decode token {task.cpu_hi[1]:.4f} ms: sampling plus {cal.host_step_ms():.4f} ms, "
-          f"1/{NEW_TOKENS} of the pWCET {cal.job_bound_ms():.3f} ms of {len(cal.job_ms)} "
-          f"calibration jobs (largest {max(cal.job_ms):.3f} ms) after the largest prefill wall")
+          f"1/{NEW_TOKENS} of the host bound {cal.host_bound_ms():.3f} ms (the largest of "
+          f"{len(cal.host_pwcets_ms())} counts' pWCETs of the host part, {len(cal.job_ms)} "
+          f"calibration jobs)")
     print(f"[rt] {name}: admitted on GN={gn} of {n_sms} SMs (SMs 0..{gn - 1}); registration "
           f"with its measurements {register_s:.1f} s, the controller's admission "
           f"{admit_ms:.3f} ms; segment GR^ on {2 * gn} virtual SMs {gr_hi:.4f} ms; job R^ "
-          f"{job.response:.4f} ms (deadline {deadline:.3f}); prefill wall on GN "
+          f"{job.response:.4f} ms (deadline {deadline:.3f}; the pooled rule's R^ on GN "
+          f"{pooled_gn:.4f} ms); prefill wall on GN "
           f"{max(cal.measured[gn]['prefill_ms']):.3f} ms (largest of "
           f"{len(cal.measured[gn]['prefill_ms'])}) beside CPU segment 0 {task.cpu_hi[0]:.4f} ms "
           f"(the largest prefill wall of every measured count, {cal.prefill_ms():.3f} ms, "
@@ -1184,6 +1335,8 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     return {"fit": dataclasses.asdict(fit),
             "measured": {str(m): v for m, v in cal.measured.items()},
             "host_step_ms": cal.host_step_ms(), "calibration_job_ms": list(cal.job_ms),
+            "host_parts": host_parts, "r_hat_target_ms": r_hat_target,
+            "pooled_r_hat_target_ms": pooled_target, "pooled_r_hat_gn_ms": pooled_gn,
             "gpu_segment": dataclasses.asdict(seg),
             "wall_based_gw_ms": wall_gw, "deadline_ms": deadline, "period_ms": 2 * deadline,
             "gn": gn, "register_s": register_s, "admit_ms": admit_ms, "gr_hi_ms": gr_hi,
@@ -1272,19 +1425,22 @@ def phase_engine(engine, ac, spec, prompt, gn: int, per_round: dict) -> dict:
     responses, walls, seconds = run["responses"], run["walls"], run["seconds"]
     graph_trace, replays = run["graph_trace"], run["replays"]
     r_hat, held = engine.rt_bound
-    # R^ with the host's part at the largest calibration job, not its pWCET:
-    # what the extrapolation carries
+    # R^ with the host's part at the largest one measured, not its pWCET:
+    # what the extrapolation carries; and R^ under the pooled rule
     cal = engine.rt_calibration
-    largest = max(cal.job_ms)
+    far = dataclasses.replace(spec, deadline_ms=1e9, period_ms=2e9)
+    largest = max(float(cal.host_parts_ms(m).max()) for m in cal.host_pwcets_ms())
     r_hat_largest = job_response_ms(measured_task_to_rt(
-        spec, cal.fit(), max(largest - cal.prefill_ms(), 0.0) / NEW_TOKENS, cal.prefill_ms()), gn)
+        far, cal.fit(), max(largest, 0.0) / NEW_TOKENS, cal.prefill_ms()), gn)
+    pooled = job_response_ms(pooled_task(far, cal), gn)
     for i, (r, (pre, step, gc_ms)) in enumerate(zip(responses, walls)):
         print(f"[engine] {name}: job {i}: R {r:.3f} ms {'<=' if r <= r_hat else '>'} R^ "
               f"{r_hat:.3f} ms (D {spec.deadline_ms:.3f} ms), headroom {1 - r / r_hat:.4f}; "
-              f"R^ at the largest of {len(cal.job_ms)} calibration jobs ({largest:.3f} ms) "
-              f"instead of their pWCET ({cal.job_bound_ms():.3f} ms) {r_hat_largest:.3f} ms, "
-              f"headroom {1 - r / r_hat_largest:.4f}; prefill {pre:.3f} ms, decode {step:.3f} "
-              f"ms/step (CUDA events); the collector ran {gc_ms:.1f} ms")
+              f"R^ at the largest host part of {len(cal.job_ms)} calibration jobs "
+              f"({largest:.3f} ms) instead of the host bound ({cal.host_bound_ms():.3f} ms) "
+              f"{r_hat_largest:.3f} ms, headroom {1 - r / r_hat_largest:.4f}; the pooled rule's "
+              f"R^ {pooled:.3f} ms, headroom {1 - r / pooled:.4f}; prefill {pre:.3f} ms, decode "
+              f"{step:.3f} ms/step (CUDA events); the collector ran {gc_ms:.1f} ms")
     jobs = stats["completed"]
     check(stats["released"] == jobs >= ENGINE_JOBS,
           f"{name}: the executor released {stats['released']} jobs and completed {jobs}, "
@@ -1336,8 +1492,8 @@ def phase_engine(engine, ac, spec, prompt, gn: int, per_round: dict) -> dict:
           f"{worst['at bounds'][name]:.3f} ms (segments at their bounds), against the card's "
           f"worst R {max(responses):.3f} ms and R^ {r_hat:.3f} ms")
     return {"jobs": jobs, "responses_ms": responses, "r_hat_ms": r_hat,
-            "largest_calibration_job_ms": largest, "job_pwcet_ms": cal.job_bound_ms(),
-            "r_hat_at_largest_job_ms": r_hat_largest,
+            "largest_host_part_ms": largest, "host_bound_ms": cal.host_bound_ms(),
+            "r_hat_at_largest_host_part_ms": r_hat_largest, "pooled_r_hat_ms": pooled,
             "deadline_ms": spec.deadline_ms, "period_ms": spec.period_ms,
             "job_walls_ms": walls, "min_headroom": health.min_headroom, "alerts": alerts,
             "launches": counts,
@@ -1426,6 +1582,7 @@ def main() -> int:
         report["device"] = phase_device()
         report["build"] = phase_build()
         sms = report["device"]["sms"]
+        report["analysis"] = phase_analysis(sms, report["device"]["nvidia_smi"])
         report["qwen3-0.6b"] = run_path(get_config("qwen3-0.6b"), phase_kernels_qwen, sms)
         report["jamba-v0.1-52b"] = run_path(jamba_one_period(), phase_kernels_jamba, sms)
     except SmokeFailure as exc:

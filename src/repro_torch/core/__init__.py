@@ -6,12 +6,13 @@ name with ``repro.`` read as ``repro_torch.``:
   workload.py    multi-segment self-suspension workload functions
   rta.py         fixed-point response-time analysis + Theorem 5.6
   federated.py   Algorithm 2 grid search / greedy allocation
-  rta_batch.py   frontier-batched vectorized analysis (numpy engine only)
-  backend.py     backend selection for rta_batch ("numpy" only)
+  rta_batch.py   frontier-batched vectorized analysis (numpy engine; the
+                 torch engine in place of the reference's JAX one)
+  backend.py     backend selection for rta_batch ("numpy", "torch" on the
+                 card, "torch:cpu")
+  baselines.py   STGM busy-waiting and self-suspension baselines
   interleave.py  virtual-SM model, Fig. 6 ratios, Eqs. 9-10
   generator.py   task-set, churn-trace and golden-scenario generators
-
-``baselines.py`` is not copied yet.
 """
 from .task import GpuSegment, RTTask, SegmentKind, TaskSet, gpu_response_bounds
 from .workload import (
@@ -43,6 +44,7 @@ from .federated import (
 )
 from .rta_batch import BatchAnalyzer, grid_search_frontier
 from .backend import available_backends, get_backend, set_backend
+from .baselines import analyze_self_suspension, analyze_stgm
 from .generator import (
     GOLDEN_SCENARIOS,
     ChurnConfig,
@@ -94,6 +96,8 @@ __all__ = [
     "schedule",
     "iter_allocations",
     "min_viable_alloc",
+    "analyze_stgm",
+    "analyze_self_suspension",
     "GeneratorConfig",
     "generate_taskset",
     "generate_tasksets",

@@ -22,8 +22,8 @@ candidate allocation prefixes at once**:
 
 Exactness contract: on the NumPy backend every sum is accumulated in the
 same order as the scalar path, so verdicts, allocations and R̂ values are
-bit-identical (tests/test_rta_batch.py asserts this; the optional JAX
-backend — see ``repro_torch.core.backend`` — is held to 1e-9).
+bit-identical (tests/test_rta_batch.py asserts this for the reference;
+the torch backend — see ``repro_torch.core.backend`` — is held to 1e-9).
 
 One batching dividend the scalar DFS cannot exploit: siblings (children of
 one frontier prefix) share all higher-priority interference, so the per-
@@ -586,15 +586,173 @@ class _NumpyEngine:
         return _INF
 
 
+class _TorchEngine:
+    """Lockstep fixed point as float64 torch ops on ``device``, in place of
+    the reference's ``jax.jit`` + ``vmap`` engine.
+
+    Views are registered into a padded ``(V, Kmax, Pmax)`` stack on the
+    device, cached until the registry changes; each candidate row carries
+    the registry ids of its higher-priority views.  An iteration evaluates
+    every row's staircases at its iterate by one batched ``searchsorted``
+    and gathers, takes the max over each view's K rows, and sums the views
+    in the NumPy engine's order (part by part, priority order within a
+    part).  Converged rows are frozen, so checking for active rows on the
+    host only every ``_CHECK_EVERY`` iterations changes nothing but the
+    syncs.  Falls back to the NumPy engine where the reference's does (no
+    interference, an empty batch, or a view whose precomputed horizon does
+    not cover ``limit``); ``fixed_points`` counts the fixed points each
+    side ran.  On ``cuda`` without a CUDA device it raises.
+    """
+
+    name = "torch"
+    _CHECK_EVERY = 8
+    _REGISTRY_LIMIT = 512
+
+    def __init__(self, device: str = "cuda") -> None:
+        import torch
+
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("the torch RTA engine runs on the card and no CUDA "
+                               "device is present; name the CPU to run it there")
+        self._torch = torch
+        self.device = torch.device(device)
+        self._np_engine = _NumpyEngine()
+        self._index: dict[int, int] = {}   # id(StaircaseArrays) -> registry slot
+        self._views: list = []
+        self._stack = None                 # cached (cls, cl, ln) device tensors
+        self.fixed_points = {"device": 0, "numpy": 0}
+
+    # Registry bound, as the reference's: checked BEFORE a call registers
+    # its views, so one call's set is never split across an eviction.
+    def _trim_registry(self, incoming: int) -> None:
+        if len(self._views) + incoming > self._REGISTRY_LIMIT:
+            self._index.clear()
+            self._views.clear()
+            self._stack = None
+
+    def _register(self, arr) -> int:
+        slot = self._index.get(id(arr))
+        if slot is None:
+            slot = len(self._views)
+            self._index[id(arr)] = slot
+            self._views.append(arr)
+            self._stack = None
+        return slot
+
+    def _stacked(self):
+        if self._stack is None:
+            arrays = self._views
+            kmax = max(a.cum_ls.shape[0] for a in arrays)
+            pmax = max(a.cum_ls.shape[1] for a in arrays)
+            v = len(arrays)
+            cls = np.full((v, kmax, pmax), _INF)
+            cl = np.zeros((v, kmax, pmax))
+            ln = np.zeros((v, kmax, pmax))
+            for s, a in enumerate(arrays):
+                k, p = a.cum_ls.shape
+                cls[s, :k, :p] = a.cum_ls
+                cl[s, :k, :p] = a.cum_l
+                # pad positions continue the final cumulative execution
+                cl[s, :k, p:] = a.cum_l[:, -1:]
+                ln[s, :k, :p] = a.length
+            self._stack = tuple(self._torch.from_numpy(x).to(self.device)
+                                for x in (cls, cl, ln))
+        return self._stack
+
+    def _numpy(self, base, limit, parts, const, horizon):
+        self.fixed_points["numpy"] += base.size
+        return self._np_engine.fixed_point_batch(base, limit, parts, const, horizon)
+
+    def fixed_point_batch(self, base, limit, parts, const, horizon=0.0):
+        B, J = base.shape
+        groups = [g for part in parts for g in part]
+        if B == 0 or J == 0 or not groups:
+            return self._numpy(base, limit, parts, const, horizon)
+        arrs = {
+            id(grp): {int(gv): vt.as_arrays(horizon) for gv, vt in grp.vt_by_gn.items()}
+            for grp in groups
+        }
+        if any(a.min_horizon <= limit for by_gn in arrs.values() for a in by_gn.values()):
+            # precomputed horizon cannot cover every query window
+            return self._numpy(base, limit, parts, const, horizon)
+        incoming = [a for by_gn in arrs.values() for a in by_gn.values()]
+        self._trim_registry(sum(1 for a in incoming if id(a) not in self._index))
+        for a in incoming:
+            self._register(a)
+        slots = np.stack([
+            np.array([self._index[id(arrs[id(grp)][int(gv)])] for gv in grp.gn_col],
+                     dtype=np.int64)
+            for grp in groups
+        ], axis=1)
+        part_ends = np.cumsum([len(part) for part in parts]).tolist()
+        self.fixed_points["device"] += base.size
+        return self._fixed_point(base, float(limit), float(const), slots, part_ends)
+
+    def _fixed_point(self, base, limit, const, slots, part_ends):
+        torch = self._torch
+        cls, cl, ln = self._stacked()
+        ids = torch.from_numpy(slots).to(self.device)
+        g_cls, g_cl, g_ln = cls[ids], cl[ids], ln[ids]          # (B, H, K, P)
+        b, h, k, p = g_cls.shape
+        base_t = torch.from_numpy(np.ascontiguousarray(base, dtype=np.float64)).to(self.device)
+        j = base_t.shape[1]
+
+        def interference(t):                                   # (B, J) -> (B, J)
+            tv = t[:, None, None, :].expand(b, h, k, j).contiguous()
+            nf = torch.searchsorted(g_cls, tv, right=True)
+            have = nf > 0
+            idx = (nf - 1).clamp_min(0)
+            consumed = torch.where(have, g_cls.gather(3, idx), 0.0)
+            work = torch.where(have, g_cl.gather(3, idx), 0.0)
+            partial = torch.minimum(g_ln.gather(3, nf.clamp_max(p - 1)), tv - consumed)
+            w = (work + partial.clamp_min(0.0)).amax(dim=2)    # (B, H, J)
+            w = torch.where(t[:, None, :] > 0.0, w, 0.0)
+            acc, start = None, 0
+            for end in part_ends:
+                pacc = w[:, start]
+                for col in range(start + 1, end):
+                    pacc = pacc + w[:, col]
+                acc = pacc if acc is None else acc + pacc
+                start = end
+            return acc
+
+        res = torch.full_like(base_t, _INF)
+        act = base_t <= limit
+        x = base_t.clone()
+        for it in range(_MAX_ITERS):
+            if it % self._CHECK_EVERY == 0 and not bool(act.any()):
+                break
+            t = torch.where(act, x, 0.0)
+            nx = base_t + (interference(t) + const)
+            over = nx > limit
+            convd = ~over & (nx <= x + _EPS)
+            res = torch.where(act & convd, nx, res)
+            done = over | convd
+            x = torch.where(act & ~done, nx, x)
+            act = act & ~done
+        return res.cpu().numpy()
+
+    def rows_stack(self, pairs):
+        return self._np_engine.rows_stack(pairs)
+
+    def fixed_point_rows(self, base, limit, const, idx1, idx2, stack, horizon=0.0):
+        # Heterogeneous per-row limits/consts: the NumPy fused-rows path, as
+        # the reference's JAX engine does.
+        self.fixed_points["numpy"] += len(base)
+        return self._np_engine.fixed_point_rows(base, limit, const, idx1, idx2, stack,
+                                                horizon)
+
+
 _ENGINES: dict[str, object] = {}
 
 
 def _engine(name: Optional[str] = None):
     name = name or get_backend()
-    if name not in ("numpy",):
+    if name not in ("numpy", "torch", "torch:cpu"):
         raise ValueError(f"unknown RTA backend {name!r}")
     if name not in _ENGINES:
-        _ENGINES[name] = _NumpyEngine()
+        _ENGINES[name] = (_NumpyEngine() if name == "numpy"
+                          else _TorchEngine("cpu" if name == "torch:cpu" else "cuda"))
     return _ENGINES[name]
 
 

@@ -29,11 +29,11 @@ steps.  A :class:`DecodeCalibration` holds those measurements for one job
 shape, whole jobs' walls among them; ``ServingEngine.rt_register`` takes
 them on the card and admits the task they give.
 
-The host's wall has no bound to measure, only samples, so the job's wall
+The host's part of a job has no bound to measure, only samples, so it
 enters the task as a probabilistic WCET (:func:`pwcet_ms`): the extreme
 value fit of measurement-based probabilistic timing analysis (a Gumbel
 distribution fitted to the maxima of blocks of jobs), read at a stated
-exceedance probability per job.
+exceedance probability per job, one SM count at a time.
 """
 from __future__ import annotations
 
@@ -234,27 +234,38 @@ def independence(walls: Sequence[float]) -> dict:
 class DecodeCalibration:
     """The job of one shape ([batch, seq_len] prompts, ``new_tokens``
     decode steps) measured on the card.  ``measured[m]`` holds, with the
-    pinned matmuls on m SMs, each prefill's wall (``prefill_ms``) and each
-    decode step's device-busy time (``device_ms``), in ms.  ``job_ms``
-    holds the walls of the first calibration's whole jobs (one
-    ``ServingEngine.generate`` each), fixed from then on, so a refit
-    cannot move the host's part of R̂.
+    pinned matmuls on m SMs, each prefill's wall (``prefill_ms``), each
+    decode step's device-busy time (``device_ms``) and each whole job's
+    wall (``job_ms``, one ``ServingEngine.generate`` each, in the order
+    timed), in ms.  Only the first calibration times whole jobs; a count
+    measured later (a granted GN) has none, so a refit cannot move the
+    host's part of R̂.
 
-    The task's CPU segments together carry the pWCET of those jobs'
-    walls (:func:`pwcet_ms`, in the order they were timed): the first the
-    largest prefill wall, each decode token's the rest, spread evenly
-    (:meth:`host_step_ms`).  The GPU segments, which count the device's
-    time a second time, stand on top."""
+    The task splits a job in three.  CPU segment 0 carries the largest
+    prefill wall of every count; each GPU segment bounds a decode step's
+    device-busy time at GN.  What neither covers is the host's part: a
+    job's wall at m less a lower bound of its device part at m, the
+    smallest prefill wall there plus ``new_tokens`` times the smallest
+    device-busy step there (:meth:`device_lower_ms`,
+    :meth:`host_parts_ms`).  Its pWCET is fitted to one SM count's jobs at
+    a time (:func:`pwcet_ms`), and the largest over the counts
+    (:meth:`host_bound_ms`), since the task is built before GN is known,
+    is spread evenly over the decode CPU segments (:meth:`host_step_ms`).  So segment 0, the GPU segments and the host
+    bound together cover a job's wall at any calibrated count."""
 
     batch: int
     seq_len: int
     new_tokens: int
     measured: dict[int, dict]
-    job_ms: tuple[float, ...]
 
     @property
     def shape(self) -> tuple[int, int, int]:
         return self.batch, self.seq_len, self.new_tokens
+
+    @property
+    def job_ms(self) -> tuple[float, ...]:
+        """Every whole job's wall, count after count in the order measured."""
+        return tuple(w for row in self.measured.values() for w in row["job_ms"])
 
     def fit(self, without: Optional[int] = None) -> StepFit:
         """The fit of each m's largest device-busy step, leaving out the
@@ -266,15 +277,40 @@ class DecodeCalibration:
         """The largest prefill wall over every measured SM count."""
         return max(max(row["prefill_ms"]) for row in self.measured.values())
 
-    def job_bound_ms(self) -> float:
-        """The pWCET of one job's wall from the calibration's jobs."""
-        return pwcet_ms(self.job_ms)
+    def device_lower_ms(self, m: int) -> float:
+        """A lower bound of one job's device part on m SMs: the smallest
+        prefill wall plus ``new_tokens`` times the smallest device-busy
+        decode step measured there.  Where the row says how many device
+        activities each step's profile recorded (``device_activities``),
+        only the complete profiles count: a profile that lost activities
+        undercounts the step's device time."""
+        row = self.measured[m]
+        busy, seen = row["device_ms"], row.get("device_activities")
+        if seen:
+            busy = [ms for ms, n in zip(busy, seen) if n == max(seen)]
+        return min(row["prefill_ms"]) + self.new_tokens * min(busy)
+
+    def host_parts_ms(self, m: int) -> np.ndarray:
+        """The host's part of each whole job timed on m SMs, in timing
+        order: its wall less :meth:`device_lower_ms`."""
+        return np.asarray(self.measured[m]["job_ms"], dtype=np.float64) - self.device_lower_ms(m)
+
+    def host_pwcets_ms(self) -> dict[int, float]:
+        """Each SM count's pWCET of the host's part, from that count's jobs
+        alone; counts without whole jobs are left out."""
+        return {m: pwcet_ms(self.host_parts_ms(m))
+                for m, row in self.measured.items() if row["job_ms"]}
+
+    def host_bound_ms(self) -> float:
+        """The host's part of one job: the largest of :meth:`host_pwcets_ms`."""
+        pwcets = self.host_pwcets_ms()
+        if not pwcets:
+            raise ValueError("no SM count of the calibration has whole jobs timed")
+        return max(pwcets.values())
 
     def host_step_ms(self) -> float:
-        """Each decode token's share of :meth:`job_bound_ms` after the
-        largest prefill wall: (pWCET − :meth:`prefill_ms`) / new_tokens, at
-        least 0."""
-        return max(self.job_bound_ms() - self.prefill_ms(), 0.0) / self.new_tokens
+        """Each decode token's share of :meth:`host_bound_ms`, at least 0."""
+        return max(self.host_bound_ms(), 0.0) / self.new_tokens
 
     def task(self, spec: ServingTaskSpec, without: Optional[int] = None) -> RTTask:
         """``spec``'s task from these measurements (:func:`measured_task_to_rt`)."""

@@ -5,12 +5,14 @@ certify.py      CertificationEngine — scalar / batched / preemptive
                 RTGPU certification of transitional ledger states
 controller.py   DynamicController — the job-boundary mode-change protocol
 federation.py   CapacityBroker — multi-host federated admission
+fleet.py        BrokerTree — hierarchical broker sharding
 trace.py        EventTrace — scheduler event telemetry (Chrome trace JSON)
 journal.py      Journal — sqlite write-ahead journal
 recovery.py     crash recovery — replay the journal, re-certify, rebuild
+daemon.py       SchedulerDaemon — unix-socket service over a journaled
+                controller (python -m repro_torch.sched.daemon)
 
 Each is the reference module with ``repro.`` read as ``repro_torch.``.
-``fleet.py`` (BrokerTree) and ``daemon.py`` are not copied yet.
 """
 from .capacity import Entry, SlicePool
 from .certify import (
@@ -29,6 +31,7 @@ from .federation import (
     Migration,
     register_placement,
 )
+from .fleet import BrokerTree
 from .journal import HostJournal, Journal
 from .recovery import (
     RecoveryAlert,
@@ -53,6 +56,7 @@ __all__ = [
     "transitional_vectors",
     "DynamicController",
     "SchedDecision",
+    "BrokerTree",
     "CapacityBroker",
     "BrokerDecision",
     "Migration",

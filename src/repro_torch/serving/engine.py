@@ -39,12 +39,12 @@ from repro_torch.sched import TraceEvent
 
 from .graphs import StepGraph
 
-__all__ = ["ServeConfig", "ServingEngine", "Steps", "calibration_sms", "device_busy_ms",
-           "executor_events", "profiled_ms", "sample_greedy", "sample_topk"]
+__all__ = ["ServeConfig", "ServingEngine", "Steps", "calibration_sms", "device_activities",
+           "device_busy_ms", "executor_events", "profiled_ms", "sample_greedy", "sample_topk"]
 
 CALIBRATION_STEPS = 6   # decode steps profiled at each SM count
 CALIBRATION_PREFILLS = 3  # prefills timed at each SM count, after one untimed
-CALIBRATION_JOBS = 16   # whole jobs timed at each SM count of the first calibration
+CALIBRATION_JOBS = 40   # whole jobs timed at each SM count of the first calibration
 READMITS = 10           # admissions tried until the granted GN is a measured count
 
 # the engines registered now, each to be told when its controller's
@@ -251,9 +251,7 @@ class ServingEngine:
             self.device).multi_processor_count)
         meas = self.measure_decode(_prompts(spec, self.cfg.vocab), sms, spec.new_tokens,
                                    CALIBRATION_JOBS)
-        jobs = tuple(w for m in sms for w in meas[m]["job_ms"])
-        self.rt_calibration = DecodeCalibration(spec.batch, spec.seq_len, spec.new_tokens,
-                                                meas, jobs)
+        self.rt_calibration = DecodeCalibration(spec.batch, spec.seq_len, spec.new_tokens, meas)
         return self.rt_calibration
 
     def rt_deregister(self, t: float = 0.0) -> bool:
@@ -488,10 +486,15 @@ class ServingEngine:
         """Each prefill's wall, each decode step's device-busy time and
         each whole job's wall, in ms, with the pinned matmuls on m SMs, for
         each m in ``sms``: ``{m: {"capture_s": s, "prefill_ms": [...],
-        "device_ms": [...], "job_ms": [...]}}``.  On the card only.
+        "device_ms": [...], "device_activities": [...], "job_ms": [...]}}``
+        (``device_activities``: what the profiler recorded of each step).
+        On the card only.
 
-        Every m's steps are captured first (``capture_s``, 0 where they
-        were), so each measurement below is of what :meth:`generate` runs.
+        Each m's steps are captured just before its measurements
+        (``capture_s``, 0 where they were), so each measurement is of what
+        :meth:`generate` runs, and m's jobs start, as a served job does
+        after admission's capture, in the state a capture leaves (the jobs
+        after a capture run slower for a while: ``scripts/host_regimes.py``).
         After one untimed prefill of ``prompts``, ``CALIBRATION_PREFILLS``
         are timed on the host clock with a synchronise on both sides, each
         with the prompt's copy to the card, as a job starts.  After the
@@ -507,10 +510,10 @@ class ServingEngine:
         b, s = prompts.shape
         if s + CALIBRATION_STEPS + 1 > self.serve.max_context:
             raise ValueError("prompt + measured steps exceed max_context")
-        capture_s = {m: self.capture(s, (m, 0)) for m in sms}
         host = torch.as_tensor(prompts, dtype=torch.int32)
         out = {}
         for m in sms:
+            capture_s = self.capture(s, (m, 0))
             steps, prompt = self.steps(s, (m, 0)), self._static.prompts[s]
             prefill_ms = []
             for i in range(CALIBRATION_PREFILLS + 1):
@@ -522,7 +525,8 @@ class ServingEngine:
                 if i:
                     prefill_ms.append((time.perf_counter() - t0) * 1e3)
             steps.decode()
-            busy = [profiled_ms(steps.decode)[1] for _ in range(CALIBRATION_STEPS)]
+            profiles = [profiled_ms(steps.decode)[1:] for _ in range(CALIBRATION_STEPS)]
+            busy = [ms for ms, _ in profiles]
             if not all(busy):
                 raise RuntimeError(f"the profiler saw no device time on {m} SMs")
             job_ms = []
@@ -532,8 +536,8 @@ class ServingEngine:
                 self._generate(prompts, new_tokens, None, (m, 0))
                 torch.cuda.synchronize()
                 job_ms.append((time.perf_counter() - t0) * 1e3)
-            out[m] = {"capture_s": capture_s[m], "prefill_ms": prefill_ms, "device_ms": busy,
-                      "job_ms": job_ms}
+            out[m] = {"capture_s": capture_s, "prefill_ms": prefill_ms, "device_ms": busy,
+                      "device_activities": [n for _, n in profiles], "job_ms": job_ms}
         return out
 
 
@@ -572,19 +576,29 @@ def _prompts(spec, vocab: int) -> np.ndarray:
 def profiled_ms(fn, *args):
     """``fn(*args)`` in a ``torch.profiler`` window of its own, with a
     synchronise on both sides (so the window holds its kernels and no
-    others): its result and its device-busy ms."""
+    others): its result, its device-busy ms and the device activities the
+    profiler recorded (a window that lost some undercounts the time)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = fn(*args)
         torch.cuda.synchronize()
-    return out, device_busy_ms(prof)
+    return out, device_busy_ms(prof), device_activities(prof)
+
+
+def _device_rows(prof):
+    return [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
 
 
 def device_busy_ms(prof) -> float:
     """Kernel time summed over a ``torch.profiler`` window, in ms."""
     total_us = 0.0
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            total_us += us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
+    for e in _device_rows(prof):
+        us = getattr(e, "self_device_time_total", None)
+        total_us += us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
     return total_us / 1e3
+
+
+def device_activities(prof) -> int:
+    """Device activities (kernels, copies, sets) a ``torch.profiler``
+    window recorded."""
+    return sum(e.count for e in _device_rows(prof))

@@ -101,7 +101,10 @@ def test_admission_covers_rejections():
 
 
 def test_backend_names_numpy_only(monkeypatch):
-    assert port_backend.available_backends() == ("numpy",)
+    """The port names no JAX backend: without a CUDA device the backends
+    are numpy and the torch engine named on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert port_backend.available_backends() == ("numpy", "torch:cpu")
     with pytest.raises(ValueError):
         port_backend.set_backend("jax")
     with pytest.raises(ValueError):
@@ -246,13 +249,16 @@ def _curve(m: int) -> float:
     return 400.0 / m + 6.0
 
 
-# whole-job walls: a 50 ms prefill, 2 decode steps of about 20 ms
-JOBS_MS = tuple(90.0 - (7 * i) % 5 for i in range(16))
+# the host's part of each whole job: 16 jobs a count
+HOST_MS = tuple(10.0 - (7 * i) % 5 for i in range(16))
 
 
-def _measured(sms) -> dict:
+def _measured(sms, jobs: bool = True) -> dict:
+    """Each count's prefill walls, device-busy steps and, where ``jobs``,
+    16 whole-job walls: a prefill, 2 decode steps and the host's part."""
     return {m: {"prefill_ms": [50.0, 49.0, 48.0], "device_ms": [_curve(m), 0.99 * _curve(m)],
-                "job_ms": []} for m in sms}
+                "job_ms": [48.0 + 2 * 0.99 * _curve(m) + h for h in HOST_MS] if jobs else []}
+            for m in sms}
 
 
 def test_card_registration_measures_the_granted_gn(monkeypatch):
@@ -270,7 +276,7 @@ def test_card_registration_measures_the_granted_gn(monkeypatch):
     def measure(prompts, sms):
         asked.append(tuple(sms))
         assert prompts.shape == (2, 8)
-        return _measured(sms)
+        return _measured(sms, jobs=False)
 
     def capture(seq_len, held=(None, 0)):
         captured.append((seq_len, held))
@@ -279,7 +285,7 @@ def test_card_registration_measures_the_granted_gn(monkeypatch):
     monkeypatch.setattr(eng, "measure_decode", measure)
     monkeypatch.setattr(eng, "capture", capture)
     spec = dataclasses.replace(_spec(), deadline_ms=1e9, period_ms=2e9)
-    cal = DecodeCalibration(2, 8, 2, _measured(calibration_sms(gn_total)), JOBS_MS)
+    cal = DecodeCalibration(2, 8, 2, _measured(calibration_sms(gn_total)))
     eng.rt_calibration = cal
     deadline = job_response_ms(cal.task(spec), gn_total // 3)
     spec = dataclasses.replace(spec, deadline_ms=deadline, period_ms=2 * deadline)
@@ -297,8 +303,8 @@ def test_card_registration_measures_the_granted_gn(monkeypatch):
 
 def test_held_out_prediction_is_the_fit_without_that_count():
     spec = _spec()
-    cal = DecodeCalibration(2, 8, 2, _measured((16, 33, 44, 66, 132)), JOBS_MS)
-    without = DecodeCalibration(2, 8, 2, _measured((16, 33, 66, 132)), JOBS_MS)
+    cal = DecodeCalibration(2, 8, 2, _measured((16, 33, 44, 66, 132)))
+    without = DecodeCalibration(2, 8, 2, _measured((16, 33, 66, 132)))
     assert cal.fit(without=44) == without.fit()
     assert cal.gr_hi(spec, 44, held_out=True) == without.gr_hi(spec, 44)
     assert cal.gr_hi(spec, 44) >= _curve(44)
@@ -306,7 +312,7 @@ def test_held_out_prediction_is_the_fit_without_that_count():
 
 def test_job_response_shrinks_with_sms():
     spec = dataclasses.replace(_spec(), deadline_ms=1e9, period_ms=2e9)
-    task = DecodeCalibration(2, 8, 2, _measured((16, 66, 132)), JOBS_MS).task(spec)
+    task = DecodeCalibration(2, 8, 2, _measured((16, 66, 132))).task(spec)
     r = [job_response_ms(task, m) for m in (8, 33, 132)]
     assert all(np.isfinite(r)) and r[0] > r[1] > r[2] > 0
 

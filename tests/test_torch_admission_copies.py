@@ -39,23 +39,28 @@ COPIES = [
     "obs/monitor.py",
     "obs/report.py",
     "runtime/executor.py",
+    "core/baselines.py",
+    "sched/fleet.py",
+    "sched/daemon.py",
 ]
 
 # module -> {"reference": names cut from the reference, "port": names cut
 # from the copy}.  A name is a top-level function, class or assignment
 # target; "set_backend/jax" is the ``if name == "jax":`` branch inside
-# ``set_backend``.
+# ``set_backend`` (and "set_backend/torch" the ``if name == "torch":`` one).
 ALLOWED = {
-    # The port names no JAX backend: only "numpy" is valid, and
-    # available_backends() imports nothing.
+    # The port names no JAX backend: "numpy", "torch" (the card) and
+    # "torch:cpu" are valid; available_backends() lists "torch" only where
+    # a CUDA device is, and set_backend("torch") raises without one.
     "core/backend.py": {
         "reference": {"_VALID", "_jax_available", "available_backends", "set_backend/jax"},
-        "port": {"_VALID", "available_backends"},
+        "port": {"_VALID", "available_backends", "set_backend/torch"},
     },
-    # The JAX engine is cut; the engine table builds the numpy engine only.
+    # The JAX engine is cut and the torch engine stands in its place; the
+    # engine table builds the numpy and torch engines.
     "core/rta_batch.py": {
         "reference": {"_JaxEngine", "_engine"},
-        "port": {"_engine"},
+        "port": {"_TorchEngine", "_engine"},
     },
 }
 
@@ -69,9 +74,10 @@ def _is_docstring(node: ast.stmt) -> bool:
             and isinstance(node.value.value, str))
 
 
-def _is_jax_branch(node: ast.stmt) -> bool:
+def _is_branch(node: ast.stmt, value: str) -> bool:
+    """``node`` is an ``if name == value:`` branch."""
     return (isinstance(node, ast.If) and isinstance(node.test, ast.Compare)
-            and any(isinstance(c, ast.Constant) and c.value == "jax"
+            and any(isinstance(c, ast.Constant) and c.value == value
                     for c in node.test.comparators))
 
 
@@ -95,8 +101,10 @@ def _normalised(text: str, cut: set) -> str:
         if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
                              ast.AsyncFunctionDef)) and body and _is_docstring(body[0]):
             body.pop(0)
-        if isinstance(node, ast.FunctionDef) and f"{node.name}/jax" in cut:
-            body[:] = [n for n in body if not _is_jax_branch(n)]
+        if isinstance(node, ast.FunctionDef):
+            for branch in ("jax", "torch"):
+                if f"{node.name}/{branch}" in cut:
+                    body[:] = [n for n in body if not _is_branch(n, branch)]
         if not body:
             body.append(ast.Pass())
     return ast.dump(tree, include_attributes=False)

@@ -6,7 +6,8 @@ port's copy, each twice: on the wall clock with spinning jobs, as the
 reference's tests run, and on a fake clock that moves only when a job
 runs or the executor sleeps (deterministic, whatever the host's load).  Task:
 the measured task's first CPU segment carries the largest prefill wall
-and its CPU segments together the pWCET of the whole calibration jobs,
+and its decode CPU segments the pWCET of the host's part of the whole
+calibration jobs, fitted one SM count at a time,
 so the job's R̂ covers one prefill and then ``new_tokens`` decode steps.
 Service: ``ServingEngine.rt_service`` on a CPU engine runs whole
 ``generate`` jobs under the executor, and ``executor_events`` gives the
@@ -169,20 +170,35 @@ def _spec(deadline_ms=1e9, period_ms=2e9):
                            dominant="memory_s", vocab=151936)
 
 
-# whole-job walls of the first calibration: 16 jobs, two blocks' maxima 812.5 and 790
+# 16 walls in two blocks with maxima 812.5 and 790
 JOBS_MS = (700.0, 812.5, 640.0, 655.0, 690.0, 701.0, 688.0, 720.0,
            790.0, 700.0, 640.0, 660.0, 670.0, 680.0, 650.0, 710.0)
+CALIBRATED = (16, 33, 66, 99, 132)
+
+
+def _device_lower_ms(m: int) -> float:
+    """The calibration's lower bound of a job's device part on m SMs: the
+    smallest prefill wall and 16 times the smallest device-busy step."""
+    return 29.5 + 100.0 / m + 16 * (79.0 / m + 10.0)
+
+
+def _host_ms(m: int) -> tuple[float, ...]:
+    """The host's part of each whole job timed on m SMs: JOBS_MS less 600,
+    scaled by a count's own factor, so each count's pWCET differs."""
+    return tuple((w - 600.0) * (1.0 + m / 132) for w in JOBS_MS)
 
 
 def _calibration(prefill_at_gn=None) -> DecodeCalibration:
-    """Synthetic measurements in the shape ``measure_decode`` returns."""
+    """Synthetic measurements in the shape ``measure_decode`` returns: each
+    whole job's wall is the device's lower bound plus a known host part."""
     measured = {m: {"prefill_ms": [30.0 + 100.0 / m, 31.0 + 100.0 / m, 29.5 + 100.0 / m],
-                    "device_ms": [80.0 / m + 10.0, 79.0 / m + 10.0], "job_ms": []}
-                for m in (16, 33, 66, 99, 132)}
+                    "device_ms": [80.0 / m + 10.0, 79.0 / m + 10.0],
+                    "job_ms": [_device_lower_ms(m) + h for h in _host_ms(m)]}
+                for m in CALIBRATED}
     if prefill_at_gn is not None:
         measured[7] = {"prefill_ms": [prefill_at_gn], "device_ms": [80.0 / 7 + 10.0],
                        "job_ms": []}
-    return DecodeCalibration(4, 256, 16, measured, JOBS_MS)
+    return DecodeCalibration(4, 256, 16, measured)
 
 
 def test_measured_task_bounds_the_prefill():
@@ -201,24 +217,129 @@ def test_measured_task_bounds_the_prefill():
 
 
 def test_measured_task_holds_the_pwcet_of_the_calibration_jobs():
-    """The CPU segments together carry the pWCET of the whole calibration
-    jobs' walls: the first the largest prefill wall, each decode token's an
-    even share of the rest.  The GPU segments are the fit's alone, so the
-    job's R̂ exceeds that wall by at least the GPU's part."""
+    """The host's part of the calibration jobs is fitted one SM count at a
+    time, and the largest count's pWCET is spread evenly over the decode
+    CPU segments; the first carries the largest prefill wall.  The GPU
+    segments are the fit's alone, so the job's R̂ exceeds the host bound
+    and the prefill by at least the GPU's part."""
     spec = _spec()
     cal = _calibration()
     base = serving_task_to_rt(spec)
     task = cal.task(spec)
-    bound = pwcet_ms(JOBS_MS)
-    assert cal.job_bound_ms() == bound > max(JOBS_MS)
-    assert cal.host_step_ms() == pytest.approx((bound - cal.prefill_ms()) / spec.new_tokens)
+    bounds = {m: pwcet_ms(_host_ms(m)) for m in CALIBRATED}
+    assert cal.host_pwcets_ms() == pytest.approx(bounds)
+    bound = max(bounds.values())
+    assert cal.host_bound_ms() == pytest.approx(bound) and bound > max(_host_ms(132))
+    assert cal.host_step_ms() == pytest.approx(bound / spec.new_tokens)
     assert task.cpu_hi[1:] == tuple(c + cal.host_step_ms() for c in base.cpu_hi[1:])
     assert task.cpu_hi[0] == base.cpu_hi[0] + cal.prefill_ms()
-    assert sum(task.cpu_hi) == pytest.approx(sum(base.cpu_hi) + bound)
+    assert sum(task.cpu_hi) == pytest.approx(sum(base.cpu_hi) + cal.prefill_ms() + bound)
     assert task == measured_task_to_rt(spec, cal.fit(), cal.host_step_ms(), cal.prefill_ms())
     for gn in (16, 44, 132):
         gpu = spec.new_tokens * task.gpu[0].response_bounds(2 * gn)[1]
-        assert job_response_ms(task, gn) >= bound + gpu - 1e-9
+        assert job_response_ms(task, gn) >= cal.prefill_ms() + bound + gpu - 1e-9
+
+
+def _card_like(host_by_count: dict) -> DecodeCalibration:
+    """A calibration shaped like the card's: 40 jobs a count whose walls
+    are mostly device time, so they come in blocks by SM count, plus the
+    host part ``host_by_count[m]`` gives each job."""
+    measured = {}
+    for m, host in host_by_count.items():
+        prefill, step = 12.0 + 200.0 / m, 10.0 + 70.0 / m
+        lower = prefill + 16 * step
+        measured[m] = {"prefill_ms": [prefill, prefill + 0.4, prefill + 0.2],
+                       "device_ms": [step + 0.05, step, step + 0.1],
+                       "job_ms": [lower + h for h in host]}
+    return DecodeCalibration(4, 256, 16, measured)
+
+
+def _hosts(seed: int, scale: dict) -> dict:
+    rng = np.random.default_rng(seed)
+    return {m: tuple(2.0 * s + rng.gumbel(0.0, 0.5 * s, 40)) for m, s in scale.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_host_part_is_recovered_per_sm_count(seed):
+    """Each job's host part is its wall less the smallest prefill wall and
+    16 smallest device-busy steps measured on its own count."""
+    hosts = _hosts(seed, {16: 1.0, 66: 2.0, 132: 3.0})
+    cal = _card_like(hosts)
+    for m, host in hosts.items():
+        assert cal.host_parts_ms(m) == pytest.approx(np.array(host), abs=1e-9)
+    assert len(cal.job_ms) == 120 and cal.job_ms[:40] == tuple(cal.measured[16]["job_ms"])
+
+
+def test_a_profile_that_lost_device_activities_is_left_out():
+    """A step's profile that recorded fewer device activities than the
+    others lost some, so it undercounts the step: where the counts are
+    known, the device's lower bound ignores it, and the host part with it."""
+    hosts = _hosts(5, {33: 1.0, 66: 1.0})
+    cal = _card_like(hosts)
+    row = cal.measured[33]
+    complete = cal.device_lower_ms(33)
+    row["device_ms"] = row["device_ms"] + [5.0]
+    assert cal.device_lower_ms(33) == pytest.approx(complete - 16 * (min(row["device_ms"][:3])
+                                                                     - 5.0))
+    row["device_activities"] = [2932, 2932, 2932, 2411]
+    assert cal.device_lower_ms(33) == complete
+    assert cal.host_parts_ms(33) == pytest.approx(np.array(hosts[33]), abs=1e-9)
+    cal.measured[66]["device_activities"] = [2932, 2932, 2932]
+    assert cal.host_parts_ms(66) == pytest.approx(np.array(hosts[66]), abs=1e-9)
+
+
+def test_each_sm_count_is_fitted_on_its_own():
+    """A count's pWCET is the fit of its own jobs' host parts, whatever the
+    other counts' walls; a count measured later without whole jobs (a
+    granted GN) adds no fit and moves nothing."""
+    hosts = _hosts(3, {16: 1.0, 66: 1.0, 132: 1.0})
+    cal = _card_like(hosts)
+    assert set(cal.host_pwcets_ms()) == {16, 66, 132}
+    for m, host in hosts.items():
+        assert cal.host_pwcets_ms()[m] == pytest.approx(pwcet_ms(host))
+    noisier = _card_like({**hosts, 132: tuple(5 * h for h in hosts[132])})
+    assert noisier.host_pwcets_ms()[16] == cal.host_pwcets_ms()[16]
+    assert noisier.host_pwcets_ms()[132] > cal.host_pwcets_ms()[132]
+    bound = cal.host_bound_ms()
+    cal.measured[48] = {"prefill_ms": [20.0], "device_ms": [12.0], "job_ms": []}
+    assert 48 not in cal.host_pwcets_ms() and cal.host_bound_ms() == bound
+    with pytest.raises(ValueError):
+        DecodeCalibration(4, 256, 16, {48: cal.measured[48]}).host_bound_ms()
+
+
+def test_host_bound_takes_the_largest_count():
+    """The task is built before GN is known, so its host bound is the
+    largest count's pWCET, wherever that count lies."""
+    for noisy in (16, 66, 132):
+        scale = {m: (4.0 if m == noisy else 1.0) for m in (16, 66, 132)}
+        cal = _card_like(_hosts(4, scale))
+        pwcets = cal.host_pwcets_ms()
+        assert max(pwcets, key=pwcets.get) == noisy
+        assert cal.host_bound_ms() == pwcets[noisy]
+        assert cal.host_step_ms() == pytest.approx(pwcets[noisy] / 16)
+
+
+def _pooled_task(spec, cal) -> object:
+    """The task of the rule before the host part was split out: the pWCET
+    of every count's walls pooled in timing order, less the largest prefill
+    wall, spread over the decode CPU segments."""
+    host_step = max(pwcet_ms(cal.job_ms) - cal.prefill_ms(), 0.0) / spec.new_tokens
+    return measured_task_to_rt(spec, cal.fit(), host_step, cal.prefill_ms())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_r_hat_falls_below_the_pooled_rule_and_covers_every_wall(seed):
+    """Walls in blocks by SM count: the pooled rule counted the device's
+    time a second time, so the job's R̂ falls below its R̂ at every count;
+    and on each calibrated count m the job's R̂ stays at or above every
+    calibration wall timed there."""
+    spec = _spec()
+    cal = _card_like(_hosts(seed, {16: 1.5, 33: 1.0, 66: 1.0, 99: 1.0, 132: 1.0}))
+    task, pooled = cal.task(spec), _pooled_task(spec, cal)
+    for gn in (16, 33, 44, 66, 99, 132):
+        assert job_response_ms(task, gn) < job_response_ms(pooled, gn)
+    for m in cal.measured:
+        assert job_response_ms(task, m) >= max(cal.measured[m]["job_ms"])
 
 
 def test_pwcet_is_the_gumbel_fit_of_block_maxima():
@@ -256,14 +377,15 @@ def test_pwcet_never_below_the_largest_wall_and_needs_two_blocks():
 def test_measured_prefill_covers_a_gn_measured_later():
     """A granted GN below the calibration's counts is measured before the
     task stands; its slower prefill then sets the first CPU segment, and
-    the decode segments shrink so the CPU segments still hold the largest
-    calibration job: a refit does not move the host's part of R̂."""
+    the decode segments stay as they were: a refit does not move the
+    host's part of R̂."""
     before = _calibration().task(_spec())
     cal = _calibration(prefill_at_gn=80.0)
     assert cal.prefill_ms() == 80.0
     task = cal.task(_spec())
     assert task.cpu_hi[0] == serving_task_to_rt(_spec()).cpu_hi[0] + 80.0
-    assert sum(task.cpu_hi) == pytest.approx(sum(before.cpu_hi))
+    assert task.cpu_hi[1:] == before.cpu_hi[1:]
+    assert cal.host_pwcets_ms() == _calibration().host_pwcets_ms()
 
 
 def test_measured_task_is_of_the_calibrated_job_shape():

@@ -297,6 +297,16 @@ def test_holdout_counts_exceedances_and_their_probability():
     assert h.binomial_tail(4, 100, 1e-3) == pytest.approx(3.6317e-6, rel=1e-4)
 
 
+def test_holdout_counts_host_parts_over_the_host_bound():
+    h = _holdout()
+    walls = [200.0 + i % 5 for i in range(98)] + [215.0, 213.0]
+    got = h.summarize_host(walls, 195.0, 19.0, 1e-3)
+    assert got["host_ms"] == [w - 195.0 for w in walls]
+    assert got["over_host_bound"] == [98]
+    assert got["max_host_over_bound"] == pytest.approx(20.0 / 19.0)
+    assert got["p_at_least_as_many_over_host_bound"] == pytest.approx(1 - 0.999 ** 100)
+
+
 def test_independence_on_known_sequences():
     # alternating: every neighbour on the other side of the median
     alt = independence([1.0, 3.0] * 40)
