@@ -7,12 +7,21 @@ Runs from the repository root and imports only ``repro_torch`` (from
 ``src/``).  Phases, in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the three hand kernels with nvcc into ``build/``, timed;
+2. build: the three hand kernels and the interleave probes with nvcc
+   into ``build/``, timed;
    analysis: Algorithm 2 over the card's SMs on Table-1 task sets (N = 5,
    M = 5, utilisations 0.6 and 1.0, seeds 0-2, ``max_nodes`` 100,000),
    with the numpy engine on the host and the torch engine on the card:
    identical decisions and candidates tried, every fixed point within
    1e-9, fixed points run on the card, each engine's candidates/s;
+   fig4: the pinned matmul alone on m = 1..all SMs at three shapes (the
+   JAX benchmark's, qwen3-0.6b's up-projection at prefill and at decode),
+   t(m) and Eq. 3's fit (R^2, C, L, a work unit's time, the speedup at 8
+   bands); fig6: alpha of the four kernel types' probes
+   (``kernels/csrc/interleave_probe.cu``), two co-resident lanes per SM
+   against one, on 16 SMs and on all, and Eqs. 9-10's gains at the
+   measured alpha beside the paper table's; each line with the card's
+   name and power limit;
 3. qwen3-0.6b path:
    a. kernels against their plain PyTorch versions on the card, at the
       path's shapes: persistent_matmul (bf16 and f32, n_bands in {1, 8,
@@ -43,14 +52,19 @@ Runs from the repository root and imports only ``repro_torch`` (from
       in a prefill held to the shapes' choice;
    d. admission: the steps' graphs captured on five SM counts, then the
       decode step's device-busy time, the prefill's wall and whole jobs'
-      walls measured there (graph replays), the independence of the job
-      walls (lag-1 autocorrelation, runs test), the step fitted
-      (t(m) <= A/m + L: GW = 2A + L, GL = L; the largest prefill wall goes
-      into the first CPU segment), each job's host part (its wall less the
-      smallest prefill wall and 16 smallest device-busy steps on its count)
-      and its independence, each count's pWCET of it and the largest, which
-      the decode CPU segments carry, the job's R^ beside the pooled rule's
-      on the same calibration (the new one must be the smaller), the
+      walls measured there (graph replays), each job's wall split into its
+      prefill's and decode steps' device spans (CUDA events) and the rest,
+      the independence of the job walls (lag-1 autocorrelation, runs
+      test), t(m) (the largest profiled busy step and job's decode-step
+      span, which must cover every job's step) fitted (t(m) <= A/m + L:
+      GW = 2A + L, GL = L; the largest prefill, wall or span, goes into the
+      first CPU segment), the rests and their independence, each count's
+      pWCET of them and the largest, which the decode CPU segments carry,
+      beside the earlier rule's (the wall less the smallest prefill wall and
+      16 smallest busy steps), the interleave ratio alpha of the step's
+      kernel type measured on the card (>= 1) and the job's R^ at it and at
+      the paper table's, the job's R^ beside the pooled rule's on the same
+      calibration (the new one must be the smaller), the
       task admitted by a port AdmissionController over the card's SMs
       (1 < GN < all), the replays' tokens on GN against the eager path's,
       then rounds through ``generate`` registered: graphs captured with
@@ -303,13 +317,77 @@ def phase_build() -> dict:
     for name, log in logs.items():
         kernel = "?"  # ptxas names the function, then gives its registers and spills
         for line in log.splitlines():
-            found = re.search(r"Function properties for \S*?\d((?:pinned|flash|scan|sm)"
+            found = re.search(r"Function properties for \S*?\d((?:pinned|flash|scan|sm|probe)"
                               r"[a-z0-9_]*_kernel)", line)
             if found:
                 kernel = found.group(1)
             if "registers" in line or "spill" in line:
                 print(f"[build] {name} {kernel}: {line.strip()}")
     return {"seconds": seconds, "nvcc": logs}
+
+
+def phase_fig4(smi: str) -> dict:
+    """Fig. 4 on the card (``repro_torch.benchmarks.fig4_kernel_scaling``):
+    the pinned matmul alone on m = 1..all SMs at its three shapes, t(m) and
+    Eq. 3's fit t = (C - L)/m + L for each.  Fails on a time that is not
+    finite and positive or a fit that explains nothing."""
+    from repro_torch.benchmarks import fig4_kernel_scaling as fig4
+
+    t0 = time.perf_counter()
+    bands, out = fig4.bands_of_card(), {}
+    for suffix, shape in fig4.SHAPES.items():
+        label = suffix.lstrip("_") or "jax_benchmark"
+        t_us, rows = fig4.shape_curve(suffix, bands)
+        rows = dict(rows)
+        fit = {key: rows[f"fig4_{key}{suffix}"] for key in
+               ("eq3_fit_r2", "eq3_c_us", "eq3_l_us", "per_tile_us", "speedup_8bands")}
+        check(all(math.isfinite(v) and v > 0 for v in t_us), f"[fig4] {label}: t(m) {t_us}")
+        check(0 < fit["eq3_fit_r2"] <= 1, f"[fig4] {label}: Eq. 3 fit R^2 {fit['eq3_fit_r2']}")
+        print(f"[fig4] ({smi}) {label} {shape}: t(m) us for m = 1..{bands[-1]}: "
+              + " ".join(f"{t:.2f}" for t in t_us))
+        print(f"[fig4] ({smi}) {label}: Eq. 3 fit R^2 {fit['eq3_fit_r2']:.6f}, C "
+              f"{fit['eq3_c_us']:.3f} us, L {fit['eq3_l_us']:.3f} us; per work unit "
+              f"{fit['per_tile_us']:.4f} us; speedup at 8 bands {fit['speedup_8bands']:.4f}")
+        out[label] = {"shape": shape, "t_us": t_us, "rows": rows}
+    seconds = time.perf_counter() - t0
+    print(f"[fig4] ({smi}) {len(bands)} band counts at {len(out)} shapes in {seconds:.1f} s")
+    return {"shapes": out, "seconds": seconds}
+
+
+def phase_fig6(smi: str, n_sms: int) -> dict:
+    """Fig. 6 on the card (``repro_torch.benchmarks.fig6_interleave``): α of
+    each kernel type's probe, two co-resident lanes per SM against one, on
+    16 SMs and on all; the two lanes of every SM must have overlapped for
+    90% of the shorter one.  Then Eqs. 9-10's gains at the measured α
+    beside the paper table's."""
+    from repro_torch.benchmarks import fig6_interleave as fig6
+
+    t0 = time.perf_counter()
+    measured = fig6.measure(n_sms)
+    rows = dict(fig6.alpha_rows(measured, n_sms))
+    for m, per in measured.items():
+        for kind, r in per.items():
+            check(math.isfinite(r["alpha"]) and r["alpha"] > 0,
+                  f"[fig6] {kind} on {m} SMs: alpha {r['alpha']}")
+            check(r["overlap"] >= 0.9, f"[fig6] {kind} on {m} SMs: two lanes of one SM "
+                  f"overlapped for {r['overlap']:.3f} of the shorter")
+        print(f"[fig6] ({smi}) on {m} SMs: " + "; ".join(
+            f"{kind} alpha {r['alpha']:.4f} (a lane {r['alone_us']:.2f} us alone, "
+            f"{r['both_us']:.2f} us with two, overlap >= {r['overlap']:.3f}; makespan ratio "
+            f"{r['makespan_alpha']:.4f})"
+            for kind, r in per.items()))
+    kinds = list(measured[n_sms])
+    print(f"[fig6] ({smi}) Eq. 10 gain a type, measured on {n_sms} SMs / paper table: " + "; ".join(
+        f"{kind} {rows[f'fig14_measured_gain_used_{kind}']:.4f} / "
+        f"{rows[f'fig14_gain_used_{kind}']:.4f}" for kind in kinds)
+        + f"; Eq. 9 on the five-task set {rows['fig14_measured_gain_total_5tasks']:.4f} / "
+        f"{rows['fig14_gain_total_5tasks']:.4f}; per-type gains "
+        f"{rows['fig14_measured_gain_min']:.4f}..{rows['fig14_measured_gain_max']:.4f} / "
+        f"{rows['fig14_gain_min']:.4f}..{rows['fig14_gain_max']:.4f}")
+    seconds = time.perf_counter() - t0
+    print(f"[fig6] ({smi}) {len(rows)} rows in {seconds:.1f} s")
+    return {"rows": rows, "measured": {str(m): v for m, v in measured.items()},
+            "seconds": seconds}
 
 
 def phase_analysis(n_sms: int, smi: str) -> dict:
@@ -1037,28 +1115,45 @@ def pooled_task(spec, cal):
 
 
 def print_host_parts(name, cal, sms) -> dict:
-    """Each count's host parts (a job's wall less the lower bound of its
-    device part there), their independence in timing order, each count's
-    pWCET and the largest, which the decode CPU segments carry."""
+    """Each count's calibration jobs split on the job path: each job's
+    device span (its prefill's and 16 decode steps' CUDA-event spans), its
+    largest decode step, which t(m) must cover, and its rest (the wall less
+    the spans: the host's part), the rests' independence in timing order,
+    each count's pWCET of them and the largest, which the decode CPU
+    segments carry; beside them the earlier rule's (the wall less the
+    smallest prefill wall and 16 smallest profiled busy steps)."""
     from repro_torch.runtime.task_spec import independence
 
     pwcets, out = cal.host_pwcets_ms(), {}
+    earlier = cal.host_pwcets_ms(cal.earlier_host_parts_ms)
     for m in sms:
         row, host = cal.measured[m], cal.host_parts_ms(m)
-        ind, seen = independence(host), row["device_activities"]
-        out[m] = {"host_ms": host.tolist(), "pwcet_ms": pwcets[m], "independence": ind,
-                  "device_lower_ms": cal.device_lower_ms(m)}
-        print(f"[rt] {name}: host part of the {len(host)} jobs on {m} SMs (wall less "
-              f"{cal.device_lower_ms(m):.3f} ms: the smallest prefill wall and {NEW_TOKENS} x the "
-              f"smallest device-busy step of the {seen.count(max(seen))} profiles with all "
-              f"{max(seen)} device activities, of {len(seen)}: activities {seen}): "
+        spans = [p + sum(st) for p, st in zip(row["prefill_span_ms"], row["step_span_ms"])]
+        steps = [max(st) for st in row["step_span_ms"]]
+        check(cal.step_ms(m) >= max(steps), f"{name}: t({m}) {cal.step_ms(m):.4f} ms below a "
+              f"job's decode step, {max(steps):.4f} ms")
+        ind = independence(host)
+        out[m] = {"rest_ms": host.tolist(), "device_span_ms": spans, "largest_step_ms": steps,
+                  "pwcet_ms": pwcets[m], "independence": ind, "t_ms": cal.step_ms(m),
+                  "earlier_host_ms": cal.earlier_host_parts_ms(m).tolist(),
+                  "earlier_pwcet_ms": earlier[m], "device_lower_ms": cal.device_lower_ms(m)}
+        print(f"[rt] {name}: the {len(host)} jobs on {m} SMs: device spans (prefill and "
+              f"{NEW_TOKENS} decode steps, CUDA events) {' '.join(f'{t:.2f}' for t in spans)} ms; "
+              f"each job's largest decode step {' '.join(f'{t:.3f}' for t in steps)} ms, all <= "
+              f"t({m}) {cal.step_ms(m):.4f} ms (largest profiled busy step "
+              f"{max(row['device_ms']):.4f}); rests (wall less the spans) "
               f"{' '.join(f'{h:.2f}' for h in host)} ms; lag-1 {ind['lag1']:.3f}, runs "
-              f"{ind['runs']} of {ind['expected']:.1f}, p {ind['p']:.3g}; pWCET {pwcets[m]:.3f} ms")
+              f"{ind['runs']} of {ind['expected']:.1f}, p {ind['p']:.3g}; pWCET {pwcets[m]:.3f} "
+              f"ms (the earlier rule's, the wall less {cal.device_lower_ms(m):.3f} ms: "
+              f"{earlier[m]:.3f} ms)")
     worst = max(pwcets, key=pwcets.get)
-    print(f"[rt] {name}: host bound, the largest count's pWCET: {cal.host_bound_ms():.3f} ms "
-          f"(on {worst} SMs; per count " + ", ".join(f"{m}: {v:.3f}" for m, v in pwcets.items())
-          + f"), {cal.host_step_ms():.4f} ms on each decode CPU segment")
-    return {"per_sm_count": out, "host_bound_ms": cal.host_bound_ms(), "largest_at": worst}
+    print(f"[rt] {name}: host bound, the largest count's pWCET of the rests: "
+          f"{cal.host_bound_ms():.3f} ms (on {worst} SMs; per count " + ", ".join(
+              f"{m}: {v:.3f}" for m, v in pwcets.items())
+          + f"), {cal.host_step_ms():.4f} ms on each decode CPU segment; the earlier rule's "
+          f"{cal.earlier_host_bound_ms():.3f} ms")
+    return {"per_sm_count": out, "host_bound_ms": cal.host_bound_ms(), "largest_at": worst,
+            "earlier_host_bound_ms": cal.earlier_host_bound_ms()}
 
 
 class GraphTrace:
@@ -1225,7 +1320,7 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     again with every matmul traced on the GN SMs), plain (the step's time),
     profiled (each decode step's device-busy time, held to GR̂(GN))."""
     from repro_torch.runtime import AdmissionController, ServingTaskSpec
-    from repro_torch.runtime.task_spec import job_response_ms
+    from repro_torch.runtime.task_spec import job_response_ms, kernel_type
     from repro_torch.serving.engine import CALIBRATION_STEPS
 
     t_phase = time.perf_counter()
@@ -1271,7 +1366,7 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     admit_ms = (time.perf_counter() - t0) * 1e3
     seg = task.gpu[0]
     gr_hi = cal.gr_hi(spec, gn)
-    t_gn = max(cal.measured[gn]["device_ms"])
+    t_gn = cal.step_ms(gn)
     held_out = cal.gr_hi(spec, gn, held_out=True)
     check(t_gn <= gr_hi, f"{name}: t({gn})={t_gn:.4f} ms > GR^ {gr_hi:.4f} ms")
     check(t_gn <= held_out, f"{name}: the fit without {gn} SMs' points predicts GR^ "
@@ -1284,18 +1379,26 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     check(all(job_response_ms(cal.task(far), m) >= max(cal.measured[m]["job_ms"])
               for m in calibrated), f"{name}: the job's R^ on a calibrated count is below a "
           f"calibration wall there")
+    check(cal.alpha is not None and cal.alpha >= 1.0 and seg.alpha == cal.alpha,
+          f"{name}: the task's alpha {seg.alpha}, measured {cal.alpha}")
+    table = dataclasses.replace(cal, alpha=None)
+    r_hat_table = job_response_ms(table.task(far), gn)
+    print(f"[rt] {name}: alpha of the step's kernel type ({kernel_type(spec)}) measured on the "
+          f"card, the largest over {calibrated} SMs: {cal.alpha:.4f}; the job's R^ on GN={gn} "
+          f"{r_hat_far:.3f} ms at it, {r_hat_table:.3f} ms at the paper table's "
+          f"{table.task(far).gpu[0].alpha}")
     wall_gw = decode_s * 1e3 * 2.0 * n_sms
-    print(f"[rt] {name}: fit of the device-busy decode step (largest of {CALIBRATION_STEPS}) "
-          f"t(m) <= A/m + L: " + ", ".join(
-              f"t({m})={max(cal.measured[m]['device_ms']):.4f}" for m in sorted(cal.measured))
+    print(f"[rt] {name}: fit of t(m), the largest of {CALIBRATION_STEPS} profiled device-busy "
+          f"decode steps and of the calibration jobs' decode-step spans, t(m) <= A/m + L: "
+          + ", ".join(f"t({m})={cal.step_ms(m):.4f}" for m in sorted(cal.measured))
           + f" ms; A={fit.a_ms:.4f} ms*SM, L={fit.l_ms:.4f} ms")
     print(f"[rt] {name}: GW={seg.work_hi:.4f} ms (2A + L), GL={seg.overhead_hi:.4f} ms, "
-          f"alpha={seg.alpha}, from device-busy time only (a wall-based GW, step "
+          f"alpha={seg.alpha}, from device time only (a wall-based GW, step "
           f"{decode_s * 1e3:.4f} ms x 2 x {n_sms} SMs, would be {wall_gw:.4f} ms); CPU segment "
           f"per decode token {task.cpu_hi[1]:.4f} ms: sampling plus {cal.host_step_ms():.4f} ms, "
           f"1/{NEW_TOKENS} of the host bound {cal.host_bound_ms():.3f} ms (the largest of "
-          f"{len(cal.host_pwcets_ms())} counts' pWCETs of the host part, {len(cal.job_ms)} "
-          f"calibration jobs)")
+          f"{len(cal.host_pwcets_ms())} counts' pWCETs of the rests of {len(cal.job_ms)} "
+          f"calibration jobs; the earlier rule's {cal.earlier_host_bound_ms():.3f} ms)")
     print(f"[rt] {name}: admitted on GN={gn} of {n_sms} SMs (SMs 0..{gn - 1}); registration "
           f"with its measurements {register_s:.1f} s, the controller's admission "
           f"{admit_ms:.3f} ms; segment GR^ on {2 * gn} virtual SMs {gr_hi:.4f} ms; job R^ "
@@ -1303,8 +1406,8 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
           f"{pooled_gn:.4f} ms); prefill wall on GN "
           f"{max(cal.measured[gn]['prefill_ms']):.3f} ms (largest of "
           f"{len(cal.measured[gn]['prefill_ms'])}) beside CPU segment 0 {task.cpu_hi[0]:.4f} ms "
-          f"(the largest prefill wall of every measured count, {cal.prefill_ms():.3f} ms, "
-          f"plus the tokenize estimate)")
+          f"(the largest prefill, wall or a job's span, of every measured count, "
+          f"{cal.prefill_ms():.3f} ms, plus the tokenize estimate)")
     print(f"[rt] {name}: held out: t({gn})={t_gn:.4f} ms <= GR^({gn}) {held_out:.4f} ms from the "
           f"fit without {gn} SMs' points ({t_gn / held_out:.3f})")
 
@@ -1345,6 +1448,7 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
             "served": served, "plain_decode_ms": plain["decode_s_per_tok"] * 1e3,
             "later_device_ms": busy, "worst_over_gr_hi": worst / gr_hi,
             "prefill_ms": cal.prefill_ms(), "cpu_segment0_ms": task.cpu_hi[0],
+            "alpha": cal.alpha, "r_hat_gn_at_table_alpha_ms": r_hat_table,
             "engine": executed, "seconds": seconds}
 
 
@@ -1583,6 +1687,8 @@ def main() -> int:
         report["build"] = phase_build()
         sms = report["device"]["sms"]
         report["analysis"] = phase_analysis(sms, report["device"]["nvidia_smi"])
+        report["fig4"] = phase_fig4(report["device"]["nvidia_smi"])
+        report["fig6"] = phase_fig6(report["device"]["nvidia_smi"], sms)
         report["qwen3-0.6b"] = run_path(get_config("qwen3-0.6b"), phase_kernels_qwen, sms)
         report["jamba-v0.1-52b"] = run_path(jamba_one_period(), phase_kernels_jamba, sms)
     except SmokeFailure as exc:

@@ -19,16 +19,25 @@ service runs.  It prints each count the pWCET model makes a claim about:
   pWCET, the largest wall / pWCET, and the binomial probability of at
   least that many exceedances in that many jobs at ``PWCET_EXCEEDANCE``
   (10⁻³) a job;
-* the jobs whose host part (the wall less the calibration's lower bound
-  of a job's device part on GN, ``DecodeCalibration.device_lower_ms``: the
-  smallest prefill wall and 16 smallest device-busy decode steps measured
-  there) exceeds the host bound (the
-  largest SM count's pWCET of the calibration jobs' host parts,
-  ``DecodeCalibration.host_bound_ms``), the largest host part / bound, and
-  the binomial probability of that many at ``PWCET_EXCEEDANCE`` a job;
-* the independence of the held-out walls and host parts in timing order,
+* each held-out job's rest (its wall less its prefill's and decode
+  steps' device spans, CUDA events: the host's part), the jobs whose rest
+  exceeds the host bound (the largest SM count's pWCET of the calibration
+  jobs' rests, ``DecodeCalibration.host_bound_ms``), the largest rest /
+  bound, and the binomial probability of that many at
+  ``PWCET_EXCEEDANCE`` a job;
+* each job's decode-step spans against GR̂(GN) of the admitted task's GPU
+  segment: the jobs with a step over it and the largest step / GR̂;
+* the earlier rule beside it: the host part as the wall less the
+  calibration's ``DecodeCalibration.device_lower_ms`` on GN, against the
+  host bound that rule gives (``earlier_host_bound_ms``);
+* the independence of the held-out walls and rests in timing order,
   which the fits assume (lag-1 autocorrelation and a runs test above and
   below the median), beside the same for the calibration's walls.
+
+Each job is timed around the engine's ``_generate``, which ``generate``
+calls.  A tree whose ``_generate`` takes no ``spans`` gives each job's
+decode steps as its mean step (``decode_s_per_tok``), and a tree whose
+calibration has no rests is held to the earlier rule's bound.
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is imported
 (default: this checkout's), e.g. that of a ``git archive`` of another
@@ -44,6 +53,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib.util
+import inspect
 import json
 import math
 import subprocess
@@ -71,15 +81,27 @@ def summarize(responses, r_hat: float, walls, pwcet: float, exceedance: float) -
             "p_at_least_as_many_over_pwcet": binomial_tail(len(over_w), len(walls), exceedance)}
 
 
-def summarize_host(walls, device_lower: float, host_bound: float, exceedance: float) -> dict:
+def summarize_rests(host, host_bound: float, exceedance: float) -> dict:
     """What the held-out jobs say of the host bound: each job's host part
-    (its wall less ``device_lower``), those over ``host_bound``, and the
-    binomial probability of at least that many at ``exceedance`` a job."""
-    host = [w - device_lower for w in walls]
+    ``host``, those over ``host_bound``, and the binomial probability of at
+    least that many at ``exceedance`` a job."""
     over = [i for i, h in enumerate(host) if h > host_bound]
-    return {"host_ms": host, "over_host_bound": over,
+    return {"host_ms": list(host), "over_host_bound": over,
             "max_host_over_bound": max(host) / host_bound,
             "p_at_least_as_many_over_host_bound": binomial_tail(len(over), len(host), exceedance)}
+
+
+def summarize_host(walls, device_lower: float, host_bound: float, exceedance: float) -> dict:
+    """:func:`summarize_rests` of the earlier rule's host parts: each
+    job's wall less ``device_lower``."""
+    return summarize_rests([w - device_lower for w in walls], host_bound, exceedance)
+
+
+def summarize_steps(steps, gr_hi: float) -> dict:
+    """Each job's decode-step spans (a list per job) against GR̂: the jobs
+    with a step over it and the largest step / GR̂."""
+    over = [i for i, job in enumerate(steps) if max(job) > gr_hi]
+    return {"over_gr_hi": over, "max_step_over_gr_hi": max(max(job) for job in steps) / gr_hi}
 
 
 def checkout_task_spec():
@@ -141,25 +163,37 @@ def main() -> int:
     r_hat, gn = engine.rt_bound
     checkout = checkout_task_spec()
     pwcet = checkout.pwcet_ms(cal.job_ms)
-    model = checkout.DecodeCalibration(cal.batch, cal.seq_len, cal.new_tokens, cal.measured)
+    model = checkout.DecodeCalibration(cal.batch, cal.seq_len, cal.new_tokens, cal.measured,
+                                       getattr(cal, "alpha", None))
     host_bound, device_lower = model.host_bound_ms(), model.device_lower_ms(gn)
+    earlier_bound = model.earlier_host_bound_ms()
+    gr_hi = engine.rt_task.gpu[0].response_bounds(2 * gn)[1]
     print(f"[holdout] calibration: {len(cal.job_ms)} job walls {min(cal.job_ms):.3f}.."
           f"{max(cal.job_ms):.3f} ms, pooled pWCET {pwcet:.3f} ms; host bound "
           f"{host_bound:.3f} ms (per SM count " + ", ".join(
               f"{m}: {v:.3f}" for m, v in model.host_pwcets_ms().items())
           + f"); admitted on GN={gn}, R^ {r_hat:.3f} ms, D {deadline:.3f} ms, period "
-          f"{spec.period_ms:.3f} ms; a job's device part on GN at least {device_lower:.3f} ms "
+          f"{spec.period_ms:.3f} ms; GR^({gn}) {gr_hi:.4f} ms; the earlier rule's host bound "
+          f"{earlier_bound:.3f} ms with a job's device part on GN at least {device_lower:.3f} ms "
           f"({time.perf_counter() - t0:.1f} s)")
 
-    walls, generate = [], engine.generate
+    walls, rests, steps, inner = [], [], [], engine._generate
+    split = "spans" in inspect.signature(inner).parameters
 
     def timed(*a, **kw):
+        spans = {}
+        if split:
+            kw["spans"] = spans
         t1 = time.perf_counter()
-        out = generate(*a, **kw)
+        out = inner(*a, **kw)
         walls.append((time.perf_counter() - t1) * 1e3)
+        stats = out[1]
+        job = [t * 1e3 for t in spans.get("decode_s", [stats["decode_s_per_tok"]] * NEW_TOKENS)]
+        steps.append(job)
+        rests.append(walls[-1] - stats["prefill_s"] * 1e3 - sum(job))
         return out
 
-    engine.generate = timed
+    engine._generate = timed
     trace = EventTrace(us_per_unit=1e6, label=name)
     executor = WallClockExecutor([engine.rt_service(spec, prompt)], trace=trace)
     t1 = time.perf_counter()
@@ -167,10 +201,13 @@ def main() -> int:
     run_s = time.perf_counter() - t1
     responses = [dict(e.meta)["response_s"] * 1e3 for e in trace.events if e.kind == "complete"]
     summary = summarize(responses, r_hat, walls, pwcet, PWCET_EXCEEDANCE)
-    host = summary["host"] = summarize_host(walls, device_lower, host_bound, PWCET_EXCEEDANCE)
+    host = summary["host"] = summarize_rests(rests, host_bound, PWCET_EXCEEDANCE)
+    earlier = summary["earlier_host"] = summarize_host(walls, device_lower, earlier_bound,
+                                                       PWCET_EXCEEDANCE)
+    step = summary["steps"] = summarize_steps(steps, gr_hi)
     independence = checkout.independence
     ind = summary["independence"] = independence(walls)
-    host_ind = summary["host_independence"] = independence(host["host_ms"])
+    host_ind = summary["host_independence"] = independence(rests)
     cal_ind = independence(cal.job_ms)
     print(f"[holdout] {len(walls)} held-out jobs in {run_s:.1f} s (released {stats['released']}, "
           f"missed {stats['missed']}): walls {min(walls):.3f}..{max(walls):.3f} ms, R "
@@ -181,13 +218,21 @@ def main() -> int:
           f"{summary['over_pwcet']}; largest wall/pWCET {summary['max_wall_over_pwcet']:.4f}; "
           f"P(at least {len(summary['over_pwcet'])} of {len(walls)} at {PWCET_EXCEEDANCE:g} a "
           f"job) {summary['p_at_least_as_many_over_pwcet']:.3g}")
-    print(f"[holdout] host part > host bound {host_bound:.3f} ms: "
-          f"{len(host['over_host_bound'])} jobs {host['over_host_bound']}; host parts "
-          f"{min(host['host_ms']):.3f}..{max(host['host_ms']):.3f} ms, largest host part/bound "
-          f"{host['max_host_over_bound']:.4f}; P(at least {len(host['over_host_bound'])} of "
-          f"{len(walls)} at {PWCET_EXCEEDANCE:g} a job) "
-          f"{host['p_at_least_as_many_over_host_bound']:.3g}")
-    for what, s in (("held-out", ind), ("held-out host part", host_ind),
+    print("[holdout] each job's rest (wall less its device spans), ms: "
+          + " ".join(f"{r:.3f}" for r in rests))
+    print("[holdout] each job's largest decode-step span, ms: "
+          + " ".join(f"{max(j):.3f}" for j in steps))
+    for what, h, bound in (("rest", host, host_bound),
+                           ("earlier rule's host part", earlier, earlier_bound)):
+        print(f"[holdout] {what} > its host bound {bound:.3f} ms: "
+              f"{len(h['over_host_bound'])} jobs {h['over_host_bound']}; "
+              f"{min(h['host_ms']):.3f}..{max(h['host_ms']):.3f} ms, largest / bound "
+              f"{h['max_host_over_bound']:.4f}; P(at least {len(h['over_host_bound'])} of "
+              f"{len(walls)} at {PWCET_EXCEEDANCE:g} a job) "
+              f"{h['p_at_least_as_many_over_host_bound']:.3g}")
+    print(f"[holdout] decode-step span > GR^({gn}) {gr_hi:.4f} ms: {len(step['over_gr_hi'])} jobs "
+          f"{step['over_gr_hi']}; largest step / GR^ {step['max_step_over_gr_hi']:.4f}")
+    for what, s in (("held-out", ind), ("held-out rest", host_ind),
                     ("calibration", cal_ind)):
         print(f"[holdout] independence of the {what} walls in timing order: lag-1 "
               f"autocorrelation {s['lag1']:.4f}; runs above/below the median {s['runs']} against "
@@ -198,7 +243,9 @@ def main() -> int:
         "nvidia_smi": smi, "src": args.src, "gn": gn, "r_hat_ms": r_hat, "deadline_ms": deadline,
         "period_ms": spec.period_ms, "pwcet_ms": pwcet, "calibration_job_ms": list(cal.job_ms),
         "host_bound_ms": host_bound, "host_pwcets_ms": model.host_pwcets_ms(),
-        "device_lower_on_gn_ms": device_lower,
+        "earlier_host_bound_ms": earlier_bound, "device_lower_on_gn_ms": device_lower,
+        "gr_hi_ms": gr_hi, "alpha": getattr(cal, "alpha", None), "rests_ms": rests,
+        "step_span_ms": steps,
         "calibration_independence": cal_ind, "walls_ms": walls, "responses_ms": responses,
         "executor": stats, "summary": summary, "seconds": time.perf_counter() - t0}, indent=1))
     print(f"[holdout] done in {time.perf_counter() - t0:.1f} s; {out.relative_to(ROOT)}")

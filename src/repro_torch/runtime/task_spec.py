@@ -29,11 +29,16 @@ steps.  A :class:`DecodeCalibration` holds those measurements for one job
 shape, whole jobs' walls among them; ``ServingEngine.rt_register`` takes
 them on the card and admits the task they give.
 
-The host's part of a job has no bound to measure, only samples, so it
-enters the task as a probabilistic WCET (:func:`pwcet_ms`): the extreme
-value fit of measurement-based probabilistic timing analysis (a Gumbel
-distribution fitted to the maxima of blocks of jobs), read at a stated
-exceedance probability per job, one SM count at a time.
+Each calibration job's wall is split on the job path into the spans its
+steps took on the device (CUDA events around the prefill and around each
+decode step) and the rest, the host's part; each part is bounded by the
+segment that carries it.  The host's part has no bound to measure, only
+samples, so it enters the task as a probabilistic WCET (:func:`pwcet_ms`):
+the extreme value fit of measurement-based probabilistic timing analysis
+(a Gumbel distribution fitted to the maxima of blocks of jobs), read at a
+stated exceedance probability per job, one SM count at a time.  The GPU
+segment's interleave ratio α is the one measured on the card for the
+step's kernel type where the calibration has it (Fig. 6's probes).
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ from repro_torch.roofline import HBM_BW
 
 __all__ = ["ServingTaskSpec", "serving_task_to_rt", "StepFit", "fit_step",
            "measured_task_to_rt", "pwcet_ms", "lag1", "runs_test", "independence",
-           "DecodeCalibration", "job_response_ms"]
+           "kernel_type", "DecodeCalibration", "job_response_ms"]
 
 PCIE_BW = 16e9          # bytes/s host<->device
 HOST_TOKENIZE_US_PER_TOK = 0.3
@@ -81,6 +86,11 @@ _DOMINANT_TO_KTYPE = {
 }
 
 
+def kernel_type(spec: ServingTaskSpec) -> str:
+    """The Fig. 6 kernel type of the step's dominant term."""
+    return _DOMINANT_TO_KTYPE.get(spec.dominant, "compute")
+
+
 def serving_task_to_rt(spec: ServingTaskSpec, hbm_bw: float = HBM_BW) -> RTTask:
     """Derive the (CL, ML, G) chain for one request-serving job."""
     m = spec.new_tokens + 1  # CPU segments: pre + per-token post/sample
@@ -99,8 +109,7 @@ def serving_task_to_rt(spec: ServingTaskSpec, hbm_bw: float = HBM_BW) -> RTTask:
         mem_hi.extend([ml_in, ml_out])
 
     # accelerator: one decode step per generated token
-    ktype = _DOMINANT_TO_KTYPE.get(spec.dominant, "compute")
-    alpha = INTERLEAVE_RATIO_MAX[ktype]
+    alpha = INTERLEAVE_RATIO_MAX[kernel_type(spec)]
     step_s = spec.roofline_step_s
     if step_s is None:
         # fallback: bandwidth-bound decode estimate
@@ -160,24 +169,30 @@ def fit_step(sms: Sequence[int], device_ms: Sequence[float]) -> StepFit:
 
 
 def measured_task_to_rt(spec: ServingTaskSpec, fit: StepFit, host_step_ms: float,
-                        prefill_ms: float) -> RTTask:
+                        prefill_ms: float, alpha: Optional[float] = None) -> RTTask:
     """The serving job's task from measurements on the card.
 
     GPU segment per decode token: GL̂ = L and GŴ = 2A + L from ``fit``, so
     that Lemma 5.1's GR̂ on 2m virtual SMs, (GŴα − GL̂)/2m + GL̂ =
     Aα/m + L(α−1)/2m + L, is at least the envelope A/m + L >= t(m) at every
-    measured m (α >= 1).  CPU segment per decode token: sampling's
-    estimate plus ``host_step_ms``, the host's share of a step.  First CPU
-    segment: the tokenize estimate plus
-    ``prefill_ms``, the prefill's wall (the largest measured), so the
-    chain keeps ``len(gpu) == new_tokens`` and still bounds the prefill.
-    The memory copies, α and the deadline and period are
-    ``serving_task_to_rt``'s."""
+    measured m (α >= 1).  ``alpha`` is the interleave ratio measured on the
+    card for the step's kernel type; None keeps the paper's table
+    (``serving_task_to_rt``'s), and a measured α below 1 is refused, since
+    the cover above needs α >= 1.  CPU segment per decode token:
+    sampling's estimate plus ``host_step_ms``, the host's share of a step.
+    First CPU segment: the tokenize estimate plus ``prefill_ms``, the
+    prefill's bound (the largest measured), so the chain keeps
+    ``len(gpu) == new_tokens`` and still bounds the prefill.  The memory
+    copies and the deadline and period are ``serving_task_to_rt``'s."""
+    if alpha is not None and not alpha >= 1.0:
+        raise ValueError(f"{spec.name}: measured interleave ratio {alpha} < 1: GR^ would not "
+                         f"cover t(m)")
     base = serving_task_to_rt(spec)
     gw_ms = 2.0 * fit.a_ms + fit.l_ms
     v = spec.variability
+    seg_alpha = {} if alpha is None else {"alpha": float(alpha)}
     gpu = tuple(dataclasses.replace(seg, work_lo=gw_ms * (1 - v), work_hi=gw_ms,
-                                    overhead_hi=fit.l_ms) for seg in base.gpu)
+                                    overhead_hi=fit.l_ms, **seg_alpha) for seg in base.gpu)
     cpu_hi = ((base.cpu_hi[0] + prefill_ms,)
               + tuple(c + host_step_ms for c in base.cpu_hi[1:]))
     return dataclasses.replace(base, cpu_lo=tuple(c * (1 - v) for c in cpu_hi),
@@ -235,28 +250,39 @@ class DecodeCalibration:
     """The job of one shape ([batch, seq_len] prompts, ``new_tokens``
     decode steps) measured on the card.  ``measured[m]`` holds, with the
     pinned matmuls on m SMs, each prefill's wall (``prefill_ms``), each
-    decode step's device-busy time (``device_ms``) and each whole job's
-    wall (``job_ms``, one ``ServingEngine.generate`` each, in the order
-    timed), in ms.  Only the first calibration times whole jobs; a count
-    measured later (a granted GN) has none, so a refit cannot move the
-    host's part of R̂.
+    profiled decode step's device-busy time (``device_ms``) and each whole
+    job's wall (``job_ms``, one ``ServingEngine.generate`` each, in the
+    order timed), in ms.  Each whole job's wall is also split on the job
+    path (``ServingEngine.measure_decode``): its prefill's device span
+    (``prefill_span_ms``), each decode step's (``step_span_ms``, a list per
+    job) and the rest (``rest_ms``), the wall less those spans, which add
+    up to the wall exactly.  Only the first calibration times whole jobs;
+    a count measured later (a granted GN) has none, so a refit cannot move
+    the host's part of R̂.  ``alpha`` is the interleave ratio measured on
+    the card for the step's kernel type (the largest over the SM counts
+    probed), None where it was not measured: the task then takes the
+    paper's table.
 
-    The task splits a job in three.  CPU segment 0 carries the largest
-    prefill wall of every count; each GPU segment bounds a decode step's
-    device-busy time at GN.  What neither covers is the host's part: a
-    job's wall at m less a lower bound of its device part at m, the
-    smallest prefill wall there plus ``new_tokens`` times the smallest
-    device-busy step there (:meth:`device_lower_ms`,
-    :meth:`host_parts_ms`).  Its pWCET is fitted to one SM count's jobs at
-    a time (:func:`pwcet_ms`), and the largest over the counts
-    (:meth:`host_bound_ms`), since the task is built before GN is known,
-    is spread evenly over the decode CPU segments (:meth:`host_step_ms`).  So segment 0, the GPU segments and the host
-    bound together cover a job's wall at any calibrated count."""
+    The task bounds each part of a job by the segment that carries it.
+    CPU segment 0 carries the largest prefill, wall or span, of every count
+    (:meth:`prefill_ms`); each GPU segment's GR̂ on m SMs covers t(m), the
+    largest of the profiled busy steps and of every decode-step span of
+    m's jobs (:meth:`step_ms`), so both levels at which a step runs are
+    inside GW; the host's part of a job is its rest (:meth:`host_parts_ms`).
+    Its pWCET is fitted to one SM count's jobs at a time
+    (:func:`pwcet_ms`), and the largest over the counts
+    (:meth:`host_bound_ms`), since the task is built before GN is known, is
+    spread evenly over the decode CPU segments (:meth:`host_step_ms`).  So
+    segment 0, the GPU segments and the host bound together cover a job's
+    wall at any calibrated count.  Rows whose jobs were timed without
+    spans keep the earlier rule: the host part is the wall less
+    :meth:`device_lower_ms` (:meth:`earlier_host_parts_ms`)."""
 
     batch: int
     seq_len: int
     new_tokens: int
     measured: dict[int, dict]
+    alpha: Optional[float] = None
 
     @property
     def shape(self) -> tuple[int, int, int]:
@@ -267,39 +293,59 @@ class DecodeCalibration:
         """Every whole job's wall, count after count in the order measured."""
         return tuple(w for row in self.measured.values() for w in row["job_ms"])
 
+    def step_ms(self, m: int) -> float:
+        """t(m): the largest of m's profiled device-busy decode steps and of
+        the decode-step spans of every whole job timed on m SMs."""
+        row = self.measured[m]
+        return max([*row["device_ms"], *(t for job in row.get("step_span_ms", ()) for t in job)])
+
     def fit(self, without: Optional[int] = None) -> StepFit:
-        """The fit of each m's largest device-busy step, leaving out the
-        points of ``without`` if given."""
+        """The fit of each m's :meth:`step_ms`, leaving out the points of
+        ``without`` if given."""
         sms = sorted(m for m in self.measured if m != without)
-        return fit_step(sms, [max(self.measured[m]["device_ms"]) for m in sms])
+        return fit_step(sms, [self.step_ms(m) for m in sms])
 
     def prefill_ms(self) -> float:
-        """The largest prefill wall over every measured SM count."""
-        return max(max(row["prefill_ms"]) for row in self.measured.values())
+        """The largest prefill, timed wall or a job's span, over every
+        measured SM count."""
+        return max(max([*row["prefill_ms"], *row.get("prefill_span_ms", ())])
+                   for row in self.measured.values())
 
     def device_lower_ms(self, m: int) -> float:
-        """A lower bound of one job's device part on m SMs: the smallest
-        prefill wall plus ``new_tokens`` times the smallest device-busy
-        decode step measured there.  Where the row says how many device
-        activities each step's profile recorded (``device_activities``),
-        only the complete profiles count: a profile that lost activities
-        undercounts the step's device time."""
+        """The earlier rule's lower bound of one job's device part on m SMs:
+        the smallest prefill wall plus ``new_tokens`` times the smallest
+        device-busy decode step measured there.  Where the row says how many
+        device activities each step's profile recorded
+        (``device_activities``), only the complete profiles count: a
+        profile that lost activities undercounts the step's device time.
+        A profiled step can run slower than the same step in a job, so this
+        is no bound of a job's device part; the spans are."""
         row = self.measured[m]
         busy, seen = row["device_ms"], row.get("device_activities")
         if seen:
             busy = [ms for ms, n in zip(busy, seen) if n == max(seen)]
         return min(row["prefill_ms"]) + self.new_tokens * min(busy)
 
-    def host_parts_ms(self, m: int) -> np.ndarray:
-        """The host's part of each whole job timed on m SMs, in timing
-        order: its wall less :meth:`device_lower_ms`."""
+    def earlier_host_parts_ms(self, m: int) -> np.ndarray:
+        """The earlier rule's host part of each whole job timed on m SMs:
+        its wall less :meth:`device_lower_ms`."""
         return np.asarray(self.measured[m]["job_ms"], dtype=np.float64) - self.device_lower_ms(m)
 
-    def host_pwcets_ms(self) -> dict[int, float]:
-        """Each SM count's pWCET of the host's part, from that count's jobs
-        alone; counts without whole jobs are left out."""
-        return {m: pwcet_ms(self.host_parts_ms(m))
-                for m, row in self.measured.items() if row["job_ms"]}
+    def host_parts_ms(self, m: int) -> np.ndarray:
+        """The host's part of each whole job timed on m SMs, in timing
+        order: its rest, where the jobs were split on the job path, else
+        :meth:`earlier_host_parts_ms`."""
+        row = self.measured[m]
+        if "rest_ms" in row:
+            return np.asarray(row["rest_ms"], dtype=np.float64)
+        return self.earlier_host_parts_ms(m)
+
+    def host_pwcets_ms(self, parts=None) -> dict[int, float]:
+        """Each SM count's pWCET of the host's part (``parts``, by default
+        :meth:`host_parts_ms`), from that count's jobs alone; counts without
+        whole jobs are left out."""
+        parts = parts or self.host_parts_ms
+        return {m: pwcet_ms(parts(m)) for m, row in self.measured.items() if row["job_ms"]}
 
     def host_bound_ms(self) -> float:
         """The host's part of one job: the largest of :meth:`host_pwcets_ms`."""
@@ -308,17 +354,23 @@ class DecodeCalibration:
             raise ValueError("no SM count of the calibration has whole jobs timed")
         return max(pwcets.values())
 
+    def earlier_host_bound_ms(self) -> float:
+        """The host bound by the earlier rule (:meth:`earlier_host_parts_ms`),
+        for comparison."""
+        return max(self.host_pwcets_ms(self.earlier_host_parts_ms).values())
+
     def host_step_ms(self) -> float:
         """Each decode token's share of :meth:`host_bound_ms`, at least 0."""
         return max(self.host_bound_ms(), 0.0) / self.new_tokens
 
     def task(self, spec: ServingTaskSpec, without: Optional[int] = None) -> RTTask:
-        """``spec``'s task from these measurements (:func:`measured_task_to_rt`)."""
+        """``spec``'s task from these measurements (:func:`measured_task_to_rt`),
+        at the measured α where there is one."""
         shape = (spec.batch, spec.seq_len, spec.new_tokens)
         if shape != self.shape:
             raise ValueError(f"{spec.name}: job shape {shape}, calibrated {self.shape}")
         return measured_task_to_rt(spec, self.fit(without), self.host_step_ms(),
-                                   self.prefill_ms())
+                                   self.prefill_ms(), self.alpha)
 
     def gr_hi(self, spec: ServingTaskSpec, m: int, held_out: bool = False) -> float:
         """The GPU segment's GR̂ on m SMs (2m virtual SMs), in ms; with

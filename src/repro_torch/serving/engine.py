@@ -30,11 +30,11 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import interleave_probe, ops
 from repro_torch.models import Model, ModelConfig
 from repro_torch.runtime.admission import AdmissionDecision
 from repro_torch.runtime.executor import Service
-from repro_torch.runtime.task_spec import DecodeCalibration, serving_task_to_rt
+from repro_torch.runtime.task_spec import DecodeCalibration, kernel_type, serving_task_to_rt
 from repro_torch.sched import TraceEvent
 
 from .graphs import StepGraph
@@ -245,13 +245,20 @@ class ServingEngine:
         """Measure ``spec``'s job (random prompt tokens from a fixed seed,
         ``spec.new_tokens`` decode steps) on the card at the
         :func:`calibration_sms` of its SM count, ``CALIBRATION_JOBS`` whole
-        jobs at each; kept as ``rt_calibration``, which :meth:`rt_register`
-        reuses."""
+        jobs at each, and the interleave ratio α of the step's kernel type
+        on each of those counts (Fig. 6's probe,
+        ``kernels.interleave_probe``; the largest is kept); kept as
+        ``rt_calibration``, which :meth:`rt_register` reuses."""
         sms = calibration_sms(torch.cuda.get_device_properties(
             self.device).multi_processor_count)
         meas = self.measure_decode(_prompts(spec, self.cfg.vocab), sms, spec.new_tokens,
                                    CALIBRATION_JOBS)
-        self.rt_calibration = DecodeCalibration(spec.batch, spec.seq_len, spec.new_tokens, meas)
+        alpha = None
+        if self.device.type == "cuda":
+            ktype = kernel_type(spec)
+            alpha = max(interleave_probe.measure_alpha(ktype, m)["alpha"] for m in sms)
+        self.rt_calibration = DecodeCalibration(spec.batch, spec.seq_len, spec.new_tokens, meas,
+                                                alpha)
         return self.rt_calibration
 
     def rt_deregister(self, t: float = 0.0) -> bool:
@@ -449,10 +456,12 @@ class ServingEngine:
 
     @torch.inference_mode()
     def _generate(self, prompts, max_new_tokens, generator, held, lazy: bool = False,
-                  eager: bool = False) -> tuple[np.ndarray, dict]:
+                  eager: bool = False, spans: Optional[dict] = None) -> tuple[np.ndarray, dict]:
         """One job, its pinned matmuls on ``held`` = (n_bands, first SM);
         ``lazy`` captures its steps first where they are not, ``eager``
-        issues them op by op (the card's reference for the graphs)."""
+        issues them op by op (the card's reference for the graphs).  A
+        ``spans`` dict given receives the prefill's span (``prefill_s``)
+        and each decode step's (``decode_s``), in seconds."""
         b, s = prompts.shape
         if b != self.serve.batch:
             raise ValueError(f"batch {b} != ServeConfig.batch {self.serve.batch}")
@@ -478,32 +487,64 @@ class ServingEngine:
             "decode_s_per_tok": float(np.mean(decode_s)) if decode_s else 0.0,
             "tokens": b * max_new_tokens,
         }
+        if spans is not None:
+            spans.update(prefill_s=stats["prefill_s"], decode_s=decode_s)
         return out, stats
+
+    def timed_job(self, prompts: np.ndarray, new_tokens: int,
+                  held: tuple[Optional[int], int] = (None, 0)) -> dict:
+        """One job (:meth:`_generate` on ``held``) timed on the host clock,
+        with a synchronise on both sides on the card, and its wall split in
+        ms: ``prefill_span_ms`` and ``step_span_ms`` (one per decode step)
+        are the steps' own spans (CUDA events around each replay on the
+        card, ``perf_counter`` on the CPU), and ``rest_ms`` is the wall less
+        those spans: every gap between two steps' events, the prompt's copy
+        to the card, the host's part of sampling and the tokens' copy back.
+        The three parts add up to the wall exactly: no millisecond is
+        counted twice and none is left out."""
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+        spans: dict = {}
+        sync()
+        t0 = time.perf_counter()
+        self._generate(prompts, new_tokens, None, held, spans=spans)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prefill_ms = spans["prefill_s"] * 1e3
+        steps_ms = [t * 1e3 for t in spans["decode_s"]]
+        return {"wall_ms": wall_ms, "prefill_span_ms": prefill_ms, "step_span_ms": steps_ms,
+                "rest_ms": wall_ms - prefill_ms - sum(steps_ms)}
 
     @torch.inference_mode()
     def measure_decode(self, prompts: np.ndarray, sms, new_tokens: int = 0,
                        jobs: int = 0) -> dict:
-        """Each prefill's wall, each decode step's device-busy time and
-        each whole job's wall, in ms, with the pinned matmuls on m SMs, for
-        each m in ``sms``: ``{m: {"capture_s": s, "prefill_ms": [...],
-        "device_ms": [...], "device_activities": [...], "job_ms": [...]}}``
-        (``device_activities``: what the profiler recorded of each step).
-        On the card only.
+        """Each prefill's wall, each profiled decode step's device-busy time
+        and each whole job's wall and its split, in ms, with the pinned
+        matmuls on m SMs, for each m in ``sms``: ``{m: {"capture_s": s,
+        "prefill_ms": [...], "device_ms": [...], "device_activities": [...],
+        "job_ms": [...], "prefill_span_ms": [...], "step_span_ms": [[...],
+        ...], "rest_ms": [...]}}`` (``device_activities``: what the profiler
+        recorded of each step; the last three, one entry per job: its
+        prefill's device span, its decode steps' and the rest of its wall,
+        which add up to the wall exactly, :meth:`timed_job`).  On the card
+        only.
 
         Each m's steps are captured just before its measurements
         (``capture_s``, 0 where they were), so each measurement is of what
         :meth:`generate` runs, and m's jobs start, as a served job does
-        after admission's capture, in the state a capture leaves (the jobs
-        after a capture run slower for a while: ``scripts/host_regimes.py``).
+        after admission's capture, in the state a capture leaves.  A job's
+        steps run at one of two levels about 8% apart whatever precedes
+        them: at the slow one the card idles between the replayed graphs'
+        kernels, which run no slower (``scripts/host_regimes.py``).  The
+        spans carry whichever level the jobs met into t(m), the rest into
+        the host's part.
         After one untimed prefill of ``prompts``, ``CALIBRATION_PREFILLS``
         are timed on the host clock with a synchronise on both sides, each
         with the prompt's copy to the card, as a job starts.  After the
         last, ``CALIBRATION_STEPS`` decode steps each run in a profiler
         window of its own (:func:`profiled_ms`), after an unprofiled one.
-        Then ``jobs`` whole jobs of ``new_tokens`` decode steps, each a
-        :meth:`generate`, are timed on the host clock with a synchronise on
-        both sides: the host's part plus the device's, sampling and the
-        tokens' copy to the host included."""
+        Then ``jobs`` whole jobs of ``new_tokens`` decode steps, each what
+        :meth:`generate` runs, are timed by :meth:`timed_job`, with no
+        profiler on the job path."""
         if self.device.type != "cuda":
             raise RuntimeError("measuring the decode step needs the card")
 
@@ -529,15 +570,12 @@ class ServingEngine:
             busy = [ms for ms, _ in profiles]
             if not all(busy):
                 raise RuntimeError(f"the profiler saw no device time on {m} SMs")
-            job_ms = []
-            for _ in range(jobs):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                self._generate(prompts, new_tokens, None, (m, 0))
-                torch.cuda.synchronize()
-                job_ms.append((time.perf_counter() - t0) * 1e3)
+            timed = [self.timed_job(prompts, new_tokens, (m, 0)) for _ in range(jobs)]
             out[m] = {"capture_s": capture_s, "prefill_ms": prefill_ms, "device_ms": busy,
-                      "device_activities": [n for _, n in profiles], "job_ms": job_ms}
+                      "device_activities": [n for _, n in profiles],
+                      "job_ms": [j["wall_ms"] for j in timed],
+                      **{key: [j[key] for j in timed]
+                         for key in ("prefill_span_ms", "step_span_ms", "rest_ms")}}
         return out
 
 
