@@ -83,10 +83,23 @@ Runs from the repository root and imports only ``repro_torch`` (from
    held to its plain version at the prefill chunk's shape (h0 none, zero
    and random; c in f32 and bf16) and at ragged shapes, and the pinned
    matmul checked (at every band count where K is split or the wgmma
-   variant runs) and timed at jamba's projection shapes.
+   variant runs) and timed at jamba's projection shapes;
+5. six more decoders at full width, each after the last is freed (ARCHS):
+   qwen3-14b (40 layers, group ratio 5), deepseek-7b (30, MHA at hd 128),
+   olmo-1b (16, non-parametric LayerNorm, tied embeddings), internvl2-2b
+   (24, 256 patch embeddings from the seed before each 256-token prompt
+   through ``generate(..., extra_embeds=...)``, ``max_context`` 1,024),
+   phi3.5-moe-42b-a6.6b cut to 24 of 32 layers and dbrx-132b (group ratio
+   6, top-4 of 16 experts) cut to 8 of 40 (DEPTH: their bf16 weights
+   exceed the 80 GB card): a. every pinned-matmul shape of the arch's
+   prefill and decode at n_bands 1, 8 and all and on the last third of
+   SMs, ``ops.mha_flash`` at its heads and the path's S, windowed and at
+   ragged S, each timed beside its plain version, library call and bound;
+   b. the main path as above.  RT_ARCH (qwen3-14b) also runs c.-e.
 
-Prints a ``{"kernels": [...]}`` line (each kernel's launches and times
-summed over both paths) and, last, ``{"ok": true, ...}``.  Details go to
+Prints each path's kernel totals, a ``{"kernels": [...]}`` line (each
+kernel's launches and times summed over all paths) and, last,
+``{"ok": true, ...}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -129,6 +142,14 @@ SIM_PERIODS = 20     # the simulator's horizon, in periods of the service
 ANALYSIS_SETS = [(util, seed) for util in (0.6, 1.0) for seed in range(3)]
 ANALYSIS_TASKS, ANALYSIS_SUBTASKS, ANALYSIS_NODES = 5, 5, 100_000
 ANALYSIS_TOL = 1e-9      # every fixed point's R^, torch engine against the numpy engine
+# The decoder archs served after jamba, each at full width: kernels and the
+# main path, in this order; RT_ARCH also runs the profile, rt and engine
+# phases.  DEPTH cuts an arch to that many repeats where its bf16 weights
+# and the float32 block check (twice one layer) do not fit the 80 GB card.
+ARCHS = ("qwen3-14b", "deepseek-7b", "olmo-1b", "internvl2-2b", "phi3.5-moe-42b-a6.6b",
+         "dbrx-132b")
+RT_ARCH = "qwen3-14b"
+DEPTH = {"phi3.5-moe-42b-a6.6b": 24, "dbrx-132b": 8}
 
 
 class SmokeFailure(Exception):
@@ -238,17 +259,28 @@ def layers(cfg):
     return [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
 
 
+def seq_len(cfg) -> int:
+    """Positions one prefill fills: the patch embeddings, then the prompt."""
+    return cfg.n_patches + PROMPT
+
+
+def max_context(cfg) -> int:
+    """The engine's context: MAX_CONTEXT, or 1,024 where the patches, the
+    prompt and the new tokens pass it (internvl2-2b: 256 + 256 + 16)."""
+    return MAX_CONTEXT if seq_len(cfg) + NEW_TOKENS <= MAX_CONTEXT else 2 * MAX_CONTEXT
+
+
 def matmul_calls(cfg) -> dict:
     """(M, K, N, dtype) -> launches of the pinned matmul on the main path
-    (ROUNDS prefills of BATCH x PROMPT tokens, NEW_TOKENS decode steps
-    each), from the layer list: attention q/k/v/o; Mamba in_proj, x_proj
-    (once per time chunk) and out_proj; MLP gate/up/down; the MoE router in
-    float32.  The lm head and the MoE experts are plain products."""
+    (ROUNDS prefills of BATCH x (patches + PROMPT) positions, NEW_TOKENS
+    decode steps each), from the layer list: attention q/k/v/o; Mamba
+    in_proj, x_proj (once per time chunk) and out_proj; MLP gate/up/down;
+    the MoE router in float32.  The lm head and the MoE experts are plain products."""
     d, hd, ff, di = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.d_inner
     q, kv, ds = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.mamba_d_state
     chunk, n_chunks = scan_chunks()
     calls = collections.Counter()
-    for m, xm, xn, times in ((BATCH * PROMPT, BATCH * chunk, n_chunks, ROUNDS),
+    for m, xm, xn, times in ((BATCH * seq_len(cfg), BATCH * chunk, n_chunks, ROUNDS),
                              (BATCH, BATCH, 1, ROUNDS * NEW_TOKENS)):
         for spec in layers(cfg):
             if spec.mixer == "attn":
@@ -274,7 +306,7 @@ def prefill_kernels(cfg) -> dict:
     chunk, _ = scan_chunks()
     out = collections.Counter()
     for (m, k, n, dt), calls in matmul_calls(cfg).items():
-        if m in (BATCH * PROMPT, BATCH * chunk):
+        if m in (BATCH * seq_len(cfg), BATCH * chunk):
             out[kernel_name(m, k, n, getattr(torch, dt))] += calls // ROUNDS
     n_attn = expected_launches(cfg)["flash_attention"] // ROUNDS
     if n_attn:
@@ -689,13 +721,14 @@ def flash_row(cfg, calls: int, gen) -> dict:
     from repro_torch.kernels.ref import mha_flash_ref
 
     dt, hd, h, hkv = getattr(torch, cfg.dtype), cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q, k, v = flash_inputs(BATCH, PROMPT, h, hkv, hd, dt, gen)
+    s = seq_len(cfg)
+    q, k, v = flash_inputs(BATCH, s, h, hkv, hd, dt, gen)
     qf, kf, vf = (expand_heads(t, h) for t in (q, k, v))
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     scale = hd ** -0.5
-    n_bytes = 2 * BATCH * PROMPT * (h + hkv) * hd * q.element_size()  # q, o; k, v
+    n_bytes = 2 * BATCH * s * (h + hkv) * hd * q.element_size()  # q, o; k, v
     row = {
-        "b": BATCH, "s": PROMPT, "h": h, "hkv": hkv, "hd": hd, "calls": calls,
+        "b": BATCH, "s": s, "h": h, "hkv": hkv, "hd": hd, "calls": calls,
         "kernel": kernel_name(dt, hd),
         "ms": time_ms(lambda: ops.mha_flash(q, k, v, scale=scale)),
         "eager_ms": eager_ms(lambda: ops.mha_flash(q, k, v, scale=scale)),
@@ -704,9 +737,9 @@ def flash_row(cfg, calls: int, gen) -> dict:
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, scale=scale, enable_gqa=True)),
         # causal work: query i attends i+1 keys, two products of hd each
-        **bound(n_bytes, 4.0 * hd * BATCH * h * PROMPT * (PROMPT + 1) / 2),
+        **bound(n_bytes, 4.0 * hd * BATCH * h * s * (s + 1) / 2),
     }
-    print(f"[kernels] {cfg.name} flash B={BATCH} S={PROMPT} H={h}/{hkv} hd={hd} x{calls} on "
+    print(f"[kernels] {cfg.name} flash B={BATCH} S={s} H={h}/{hkv} hd={hd} x{calls} on "
           f"{row['kernel']}: ops.mha_flash {row['ms']:.4f} ms, {row['ms'] / row['library_ms']:.2f}"
           f"x sdpa (issued eagerly {row['eager_ms']:.4f}; [BH, S, hd] entry on expanded inputs "
           f"{row['ms_expanded']:.4f}; plain {row['plain_ms']:.4f}, sdpa {row['library_ms']:.4f}, "
@@ -848,11 +881,46 @@ def phase_kernels_jamba(cfg, n_sms) -> dict:
             "flash_err": fl_err, "scan_err": path_err}
 
 
+def phase_kernels_arch(cfg, n_sms) -> dict:
+    """A decoder of attention and MLP or MoE layers at its own shapes (the
+    archs after jamba): every pinned-matmul shape of its prefill and decode
+    (the MoE router in float32) at n_bands 1, 8 and all and on the card's
+    last third of SMs, and ops.mha_flash at its (H, Hkv, hd) at the path's
+    S (patches + prompt), windowed, and at ragged S; then each timed."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2 + ARCHS.index(cfg.name))
+    dt = getattr(torch, cfg.dtype)
+    calls = matmul_calls(cfg)
+    mm_err = {}
+    for m, k, n, dt_name in calls:
+        mm_err[(m, k, n, dt_name)] = check_matmul(m, k, n, getattr(torch, dt_name), gen,
+                                                  (1, 8, n_sms))
+    print(f"[kernels] persistent_matmul at {len(mm_err)} {cfg.name} shapes x 3 band counts and "
+          f"the last third of SMs ok; max abs err {max(mm_err.values()):.3g}")
+    s, h, hkv, hd = seq_len(cfg), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    fl_err = check_flash(BATCH, s, h, hkv, hd, dt, None, gen, old_entry=True)
+    fl_extra = {
+        "window64": check_flash(BATCH, s, h, hkv, hd, dt, 64, gen),
+        "ragged200": check_flash(2, 200, h, hkv, hd, dt, None, gen),
+        "ragged77_window64": check_flash(1, 77, h, hkv, hd, dt, 64, gen),
+    }
+    print(f"[kernels] flash_attention at {cfg.name}'s shape (group ratio {h // hkv}, "
+          f"H={h}/{hkv}, hd={hd}, S={s}) ok: max abs err {fl_err:.3g}, {fl_extra}")
+
+    expected = expected_launches(cfg)
+    return {"matmul_rows": matmul_rows(cfg, calls, gen),
+            "flash_rows": [flash_row(cfg, expected["flash_attention"], gen)],
+            "scan_rows": [],
+            "matmul_err": max(v for key, v in mm_err.items() if key[3] == cfg.dtype),
+            "flash_err": fl_err, "flash_extra_err": fl_extra}
+
+
 def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def prefill_f32(model, tokens):
+def prefill_f32(model, tokens, extra=None):
     """Prefill logits of a float32 copy of the model on the plain versions,
     one block at a time (a float32 copy of a whole large model need not
     fit beside the bf16 one): cast a block, run it, free it.
@@ -867,13 +935,13 @@ def prefill_f32(model, tokens):
     from repro_torch.models.layers import apply_norm
 
     cfg, f32 = model.cfg, torch.float32
-    x = model._embed(tokens).float()
+    x = model._embed(tokens, extra).float()
     block_errs = []
     for i, block in enumerate(model.layers):
         spec = model._spec(i)
 
         def update(blk, dtype):
-            cache = init_block_cache(cfg, spec, tokens.shape[0], MAX_CONTEXT, dtype,
+            cache = init_block_cache(cfg, spec, tokens.shape[0], max_context(cfg), dtype,
                                      model.device)
             x_in = x.to(dtype)
             out, _ = block_prefill(blk, cfg, spec, x_in, cache, cfg.sliding_window)
@@ -892,14 +960,17 @@ def prefill_f32(model, tokens):
     return x[:, -1:] @ head["w"].float().T, block_errs
 
 
-def graphs_match_eager(engine, prompts, held, replayed) -> dict:
+def graphs_match_eager(engine, prompts, held, replayed, extras=None) -> dict:
     """The prompts' jobs on SMs ``held`` issued op by op (the engine's eager
-    steps), each against the tokens the graph replays gave (``replayed``):
+    steps), each with its patch embeddings (``extras``, where the config
+    has them), against the tokens the graph replays gave (``replayed``):
     equal.  Returns the last eager job's prefill ms and decode ms/step
     (CUDA events)."""
     import numpy as np
 
-    eager = [engine._generate(p, NEW_TOKENS, None, held, eager=True) for p in prompts]
+    extras = extras or [None] * len(prompts)
+    eager = [engine._generate(p, NEW_TOKENS, None, held, eager=True, extra_embeds=e)
+             for p, e in zip(prompts, extras)]
     for i, ((out, _), want) in enumerate(zip(eager, replayed)):
         check(np.array_equal(out, want), f"{engine.cfg.name} on SMs {held}: job {i}'s tokens "
               f"from the graph replays differ from the eager path's")
@@ -917,9 +988,12 @@ def phase_main_path(cfg) -> dict:
     from repro_torch.serving import ServeConfig, ServingEngine
     from repro_torch.serving.graphs import WARMUP
 
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = ServingEngine(cfg, ServeConfig(max_context=MAX_CONTEXT, batch=BATCH), seed=SEED)
+    engine = ServingEngine(cfg, ServeConfig(max_context=max_context(cfg), batch=BATCH),
+                           seed=SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     capture_s = engine.capture(PROMPT)
@@ -930,12 +1004,15 @@ def phase_main_path(cfg) -> dict:
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, (BATCH, PROMPT)).astype(np.int32)
                for _ in range(ROUNDS)]
+    # patch embeddings (internvl2-2b's stub frontend) at the token embeddings' scale
+    extras = [(rng.standard_normal((BATCH, cfg.n_patches, cfg.d_model)) * 0.02).astype(np.float32)
+              if cfg.n_patches else None for _ in range(ROUNDS)]
 
     counters = zeroed_counters()
     rounds, outs = [], []
-    for p in prompts:
+    for p, e in zip(prompts, extras):
         t1 = time.perf_counter()
-        out, stats = engine.generate(p, max_new_tokens=NEW_TOKENS)
+        out, stats = engine.generate(p, max_new_tokens=NEW_TOKENS, extra_embeds=e)
         stats["wall_s"] = time.perf_counter() - t1
         rounds.append(stats)
         outs.append(out)
@@ -951,18 +1028,19 @@ def phase_main_path(cfg) -> dict:
           f"{cfg.name}: {prefill_graph.replays} prefill and {decode_graph.replays} decode "
           f"replays, {ROUNDS} rounds run")
     peak_serve_gb = torch.cuda.max_memory_allocated() / 1e9
-    eager = graphs_match_eager(engine, prompts, (None, 0), outs)
+    eager = graphs_match_eager(engine, prompts, (None, 0), outs, extras)
 
     model = engine.model
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts[0], device="cuda")
-        got, _ = model.prefill(tokens, model.init_caches(BATCH, MAX_CONTEXT))
+        extra = None if extras[0] is None else torch.as_tensor(extras[0], device="cuda")
+        got, _ = model.prefill(tokens, model.init_caches(BATCH, max_context(cfg)), extra)
         before = {name: fn.launches for name, fn in counters.items()}
         with plain_kernels():
-            want, _ = model.prefill(tokens, model.init_caches(BATCH, MAX_CONTEXT))
+            want, _ = model.prefill(tokens, model.init_caches(BATCH, max_context(cfg)), extra)
         moved = {name: fn.launches - before[name] for name, fn in counters.items()}
         check(not any(moved.values()), f"{cfg.name}: the plain path launched kernels: {moved}")
-        truth, block_errs = prefill_f32(model, tokens)
+        truth, block_errs = prefill_f32(model, tokens, extra)
     got, want = got.float(), want.float()
     check(got.shape == (BATCH, 1, cfg.vocab) and bool(torch.isfinite(got).all()),
           f"prefill logits {tuple(got.shape)} not finite or mis-shaped")
@@ -977,8 +1055,10 @@ def phase_main_path(cfg) -> dict:
     steady = rounds[-1]
     tok_s = BATCH / steady["decode_s_per_tok"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shape = (f"{BATCH}x({cfg.n_patches} patches + {PROMPT} tokens)" if cfg.n_patches
+             else f"{BATCH}x{PROMPT} tokens")
     print(f"[main] {cfg.name} bf16 batch {BATCH}: prefill {steady['prefill_s'] * 1e3:.3f} ms "
-          f"({BATCH}x{PROMPT} tokens), decode {steady['decode_s_per_tok'] * 1e3:.3f} ms/step, "
+          f"({shape}), decode {steady['decode_s_per_tok'] * 1e3:.3f} ms/step, "
           f"{tok_s:.1f} tokens/s (graph replays, CUDA events); round walls "
           f"{[round(r['wall_s'], 4) for r in rounds]} s; init {init_s:.1f} s")
     print(f"[main] {cfg.name} prefill logits rel L2: kernels vs plain {rel:.4g}, kernels vs "
@@ -1606,18 +1686,26 @@ def phase_engine(engine, ac, spec, prompt, gn: int, per_round: dict) -> dict:
             "sim_worst_ms": worst}
 
 
-def run_path(cfg, kernels_phase, n_sms) -> dict:
-    """One model's kernels, main path, profile and RT phases; frees the
-    engine before it returns."""
+def run_path(cfg, kernels_phase, n_sms, rt: bool = True) -> dict:
+    """One model's kernels and main path, and with ``rt`` its profile and
+    RT phases; frees the engine before it returns."""
     import torch
 
-    out = {"kernels": kernels_phase(cfg, n_sms), "main": phase_main_path(cfg)}
+    t0 = time.perf_counter()
+    out = {"kernels": kernels_phase(cfg, n_sms)}
+    out["kernels_s"] = time.perf_counter() - t0
+    out["main"] = phase_main_path(cfg)
     engine, prompt = out["main"].pop("engine"), out["main"].pop("prompt")
-    out["profile"] = phase_profile(engine, prompt)
-    out["rt"] = phase_rt(cfg, engine, prompt, n_sms, out["main"]["rounds"][-1]["decode_s_per_tok"])
+    if rt:
+        out["profile"] = phase_profile(engine, prompt)
+        out["rt"] = phase_rt(cfg, engine, prompt, n_sms,
+                             out["main"]["rounds"][-1]["decode_s_per_tok"])
+    engine.release_graphs()
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[path] {cfg.name}: {out['seconds']:.1f} s (kernels {out['kernels_s']:.1f} s)")
     return out
 
 
@@ -1634,6 +1722,40 @@ def jamba_one_period():
     return cut
 
 
+def arch_path_config(arch: str):
+    """``arch`` at full width, cut in depth to DEPTH[arch] repeats where its
+    bf16 weights and the float32 block check would not fit the card."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    if arch not in DEPTH:
+        print(f"[{arch}] whole: {full.n_layers} layers, {full.param_count() * 2 / 1e9:.1f} GB "
+              f"of bf16 weights; every width as published")
+        return full
+    cut = dataclasses.replace(full, n_repeats=DEPTH[arch])
+    layer_gb = (full.param_count() - dataclasses.replace(full, n_repeats=0).param_count()) \
+        * 2 / 1e9 / full.n_layers
+    print(f"[{arch}] cut: n_repeats {full.n_repeats} -> {cut.n_repeats} ({full.n_layers} -> "
+          f"{cut.n_layers} layers): {full.param_count() * 2 / 1e9:.1f} GB of bf16 weights "
+          f"exceed the card's 80 GB; {cut.n_layers} layers hold "
+          f"{cut.param_count() * 2 / 1e9:.1f} GB, each layer {layer_gb:.2f} GB, and the "
+          f"float32 block check needs {2 * layer_gb:.1f} GB more; every width as published")
+    return cut
+
+
+def path_totals(name: str, path: dict) -> list[dict]:
+    """The ``kernels`` line of one path alone (ms per call times the
+    launches of its main path, all SMs), for the kernels it launched;
+    printed."""
+    entries = [e for e in kernels_line([path])["kernels"] if e["launches"]]
+    print(f"[kernels] {name} path totals: " + "; ".join(
+        f"{e['name']} x{e['launches']}: {e['ms']:.3f} ms (bound {e['bound_ms']:.3f}, plain "
+        f"{e['plain_ms']:.3f}, library "
+        + ("none" if e["library_ms"] is None else f"{e['library_ms']:.3f}") + ")"
+        for e in entries))
+    return entries
+
+
 def kernels_line(paths: list[dict]) -> dict:
     def total(key, rows):
         return sum(r["calls"] * r[key] for r in rows)
@@ -1647,7 +1769,7 @@ def kernels_line(paths: list[dict]) -> dict:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces,
             "launches": sum(p["main"]["launches"][name] for p in paths),
-            "max_abs_err": max(errs),
+            "max_abs_err": max(errs, default=None),  # None: not on this path
             "ms": total("ms", rows), "plain_ms": total("plain_ms", rows),
             "bound_ms": total("bound_ms", rows),
             "bound_by": ("bytes" if total("bytes_ms", rows) >= total("ops_ms", rows)
@@ -1691,10 +1813,15 @@ def main() -> int:
         report["fig6"] = phase_fig6(report["device"]["nvidia_smi"], sms)
         report["qwen3-0.6b"] = run_path(get_config("qwen3-0.6b"), phase_kernels_qwen, sms)
         report["jamba-v0.1-52b"] = run_path(jamba_one_period(), phase_kernels_jamba, sms)
+        for arch in ARCHS:
+            report[arch] = run_path(arch_path_config(arch), phase_kernels_arch, sms,
+                                    rt=arch == RT_ARCH)
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
         return 1
-    line = kernels_line([report["qwen3-0.6b"], report["jamba-v0.1-52b"]])
+    paths = {name: report[name] for name in ("qwen3-0.6b", "jamba-v0.1-52b", *ARCHS)}
+    report["path_totals"] = {name: path_totals(name, path) for name, path in paths.items()}
+    line = kernels_line(list(paths.values()))
     report["kernels_line"] = line
     report["seconds"] = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)

@@ -9,6 +9,10 @@ Input is the JAX tree as nested dicts/tuples of numpy arrays (e.g.
   unstacked: layer ``r * len(pattern) + pos`` takes slice ``r`` of
   position ``pos`` (Mamba and MoE leaves too: an expert tensor
   ``[n_repeats, E, d, f]`` becomes ``[E, d, f]``).
+
+Every leaf carries over under its own name, so tied embeddings (no
+``lm_head``), LayerNorm's ``b`` and the non-parametric norm's placeholder
+``np`` need nothing of their own.
 """
 from __future__ import annotations
 

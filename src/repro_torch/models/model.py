@@ -1,7 +1,9 @@
 """Model: a decoder of per-layer modules, with prefill and decode entry points.
 
 Counterpart of ``repro.models.model.Model`` for decoders of attention or
-Mamba mixers with MLP or MoE ffns (qwen3, jamba).  The JAX model scans
+Mamba mixers with MLP or MoE ffns (qwen3, deepseek, olmo, phi3.5-moe,
+dbrx, jamba), with an optional prefix of precomputed patch embeddings
+(internvl2's stub vision frontend).  The JAX model scans
 stacked repeats; here ``layers`` is a ``ModuleList`` with one
 :class:`Block` per layer (layer ``r * len(pattern) + pos`` is pattern
 position ``pos`` of repeat ``r``).  Parameter names follow the JAX tree:
@@ -9,7 +11,7 @@ position ``pos`` of repeat ``r``).  Parameter names follow the JAX tree:
 
 Entry points:
   init_params(seed) / init_caches(batch, max_len) / reset_caches(caches, cache_len)
-  prefill(tokens, caches)                  -> (last_logits, caches)
+  prefill(tokens, caches, extra_embeds)    -> (last_logits, caches)
   decode_step(token, caches, cache_len)    -> (logits, caches)
 
 Caches are written in place: their tensors keep their addresses from the
@@ -42,10 +44,9 @@ def resolve_device(device) -> torch.device:
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.is_encoder_decoder or cfg.n_patches:
+        if cfg.is_encoder_decoder:
             raise NotImplementedError(
-                "encoders and patch inputs are not ported yet: ROADMAP "
-                "'Modules to port' (whisper-base, internvl2-2b)")
+                "encoders are not ported yet: ROADMAP 'Modules to port' (whisper-base)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -95,8 +96,12 @@ class Model(nn.Module):
 
     # ----------------------------------------------------------------- embed
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed["w"][tokens.long()]
+    def _embed(self, tokens: torch.Tensor, extra_embeds=None) -> torch.Tensor:
+        x = self.embed["w"][tokens.long()]
+        if extra_embeds is not None:
+            # stub modality frontend: precomputed patch embeddings, prepended
+            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+        return x
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         head = self.lm_head if not self.cfg.tie_embeddings else self.embed
@@ -104,11 +109,13 @@ class Model(nn.Module):
 
     # --------------------------------------------------------------- serving
 
-    def prefill(self, tokens: torch.Tensor, caches: list[dict]):
-        """tokens: [B, S]; fills the caches; returns logits of the last
-        position [B, 1, V] and the caches."""
+    def prefill(self, tokens: torch.Tensor, caches: list[dict], extra_embeds=None):
+        """tokens: [B, S]; extra_embeds: [B, P, d_model] or None, prepended
+        to the token embeddings (cast to the model dtype), so the caches
+        fill P + S positions; returns logits of the last position [B, 1, V]
+        and the caches."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        x = self._embed(tokens, extra_embeds)
         for i, block in enumerate(self.layers):
             x, caches[i] = block_prefill(block, cfg, self._spec(i), x, caches[i],
                                          cfg.sliding_window)

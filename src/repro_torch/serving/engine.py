@@ -3,8 +3,9 @@ and samplers, usable standalone or under an RT admission controller.
 
 Counterpart of ``repro.serving.engine``.  The caches and the step's
 inputs and outputs are static: allocated once per engine (its batch and
-``max_context``) and written in place.  Each job resets them, then runs a
-prefill step and a decode step per token; the sampled tokens collect in a
+``max_context``) and written in place, a config's patch embeddings
+(internvl2-2b) among the step's inputs.  Each job resets them, then runs
+a prefill step and a decode step per token; the sampled tokens collect in a
 device buffer, copied to the host once a job.  On the card each step is a
 CUDA graph replay (:class:`~repro_torch.serving.graphs.StepGraph`, as the
 JAX engine ``jax.jit``s its steps), captured per prompt length and per
@@ -113,14 +114,18 @@ class _StepTimer:
 
 class _Static:
     """One engine's device state between steps: the caches, each row's
-    ``cache_len``, the prompt of each length, the last sampled token, the
-    decode step's index and the tokens it has emitted.  Plain tensors, not
+    ``cache_len``, the prompt of each length, the patch embeddings that
+    precede it (``patches``, [B, n_patches, d_model] in the model dtype;
+    None where the config has none), the last sampled token, the decode
+    step's index and the tokens it has emitted.  Plain tensors, not
     inference tensors, so they can be written outside inference mode."""
 
     @torch.inference_mode(False)
     def __init__(self, model: Model, batch: int, max_context: int):
-        dev = model.device
+        dev, cfg = model.device, model.cfg
         self.caches = model.init_caches(batch, max_context)
+        self.patches = (torch.zeros((batch, cfg.n_patches, cfg.d_model), dtype=model.dtype,
+                                    device=dev) if cfg.n_patches else None)
         self.cache_len = torch.zeros(batch, dtype=torch.int32, device=dev)
         self.tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -364,12 +369,15 @@ class ServingEngine:
         prompts: np.ndarray,           # [B, S] int32
         max_new_tokens: int = 16,
         generator: Optional[torch.Generator] = None,
+        extra_embeds=None,             # [B, n_patches, d_model], default zeros
     ) -> tuple[np.ndarray, dict]:
         """One job on the SMs the service holds (all, when not admitted).
         Not admitted, its first job of a prompt length captures the steps;
-        admitted, a job runs the graphs captured at admission or raises."""
+        admitted, a job runs the graphs captured at admission or raises.
+        A config with ``n_patches`` prepends ``extra_embeds`` (zeros when
+        None, as the JAX engine does) to every row's prompt."""
         return self._generate(prompts, max_new_tokens, generator, self.sm_range or (None, 0),
-                              lazy=self._rt is None)
+                              lazy=self._rt is None, extra_embeds=extra_embeds)
 
     # ---- the steps ----------------------------------------------------------
 
@@ -384,12 +392,12 @@ class ServingEngine:
         return self._static
 
     def _prefill_step(self, seq_len: int, generator) -> None:
-        """Reset the job's state, fill the caches from the prompt and
-        sample the first token."""
+        """Reset the job's state, fill the caches from the patch embeddings
+        (if any) and the prompt, and sample the first token."""
         st, model = self._static, self.model
         model.reset_caches(st.caches, st.cache_len)
-        logits, _ = model.prefill(st.prompts[seq_len], st.caches)
-        st.cache_len.add_(seq_len)
+        logits, _ = model.prefill(st.prompts[seq_len], st.caches, st.patches)
+        st.cache_len.add_(seq_len + self.cfg.n_patches)
         st.step.zero_()
         st.tok.copy_(self._sample(generator, logits[:, -1, :])[:, None])
 
@@ -454,24 +462,49 @@ class ServingEngine:
             # a pool whose graphs are all gone takes no further capture
             self._pool = None
 
+    def _write_inputs(self, prompts, extra_embeds=None) -> None:
+        """Copy a job's prompts, and its patch embeddings (zeros when None),
+        into the static buffers its steps read."""
+        st = self._static
+        st.prompts[prompts.shape[1]].copy_(torch.as_tensor(prompts, dtype=torch.int32))
+        if st.patches is None:
+            if extra_embeds is not None:
+                raise ValueError(f"{self.cfg.name} takes no patch embeddings (n_patches 0)")
+        elif extra_embeds is None:
+            st.patches.zero_()
+        else:
+            extra = torch.as_tensor(extra_embeds)
+            if tuple(extra.shape) != tuple(st.patches.shape):
+                raise ValueError(f"extra_embeds {tuple(extra.shape)} are not "
+                                 f"[batch, n_patches, d_model] = {tuple(st.patches.shape)}")
+            st.patches.copy_(extra)
+
+    def _check_context(self, seq_len: int, new_tokens: int, what: str) -> None:
+        if self.cfg.n_patches + seq_len + new_tokens > self.serve.max_context:
+            raise ValueError(f"patches + prompt + {what} exceed max_context "
+                             f"({self.cfg.n_patches} + {seq_len} + {new_tokens} > "
+                             f"{self.serve.max_context})")
+
     @torch.inference_mode()
     def _generate(self, prompts, max_new_tokens, generator, held, lazy: bool = False,
-                  eager: bool = False, spans: Optional[dict] = None) -> tuple[np.ndarray, dict]:
+                  eager: bool = False, spans: Optional[dict] = None,
+                  extra_embeds=None) -> tuple[np.ndarray, dict]:
         """One job, its pinned matmuls on ``held`` = (n_bands, first SM);
         ``lazy`` captures its steps first where they are not, ``eager``
         issues them op by op (the card's reference for the graphs).  A
         ``spans`` dict given receives the prefill's span (``prefill_s``)
-        and each decode step's (``decode_s``), in seconds."""
+        and each decode step's (``decode_s``), in seconds.  The patch
+        embeddings are written into their static buffer before the
+        prefill, as the prompt is, so a replayed graph reads this job's."""
         b, s = prompts.shape
         if b != self.serve.batch:
             raise ValueError(f"batch {b} != ServeConfig.batch {self.serve.batch}")
-        if s + max_new_tokens > self.serve.max_context:
-            raise ValueError("prompt + new tokens exceed max_context")
+        self._check_context(s, max_new_tokens, "new tokens")
         if lazy and not eager:
             self.capture(s, held)
         steps = self.steps(s, held, generator, eager)
         st = self._static
-        st.prompts[s].copy_(torch.as_tensor(prompts, dtype=torch.int32))
+        self._write_inputs(prompts, extra_embeds)
         prefill_t, decode_t = _StepTimer(self.device), _StepTimer(self.device)
         prefill_t.start()
         steps.prefill()
@@ -549,18 +582,16 @@ class ServingEngine:
             raise RuntimeError("measuring the decode step needs the card")
 
         b, s = prompts.shape
-        if s + CALIBRATION_STEPS + 1 > self.serve.max_context:
-            raise ValueError("prompt + measured steps exceed max_context")
-        host = torch.as_tensor(prompts, dtype=torch.int32)
+        self._check_context(s, max(CALIBRATION_STEPS + 1, new_tokens), "measured steps")
         out = {}
         for m in sms:
             capture_s = self.capture(s, (m, 0))
-            steps, prompt = self.steps(s, (m, 0)), self._static.prompts[s]
+            steps = self.steps(s, (m, 0))
             prefill_ms = []
             for i in range(CALIBRATION_PREFILLS + 1):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                prompt.copy_(host)
+                self._write_inputs(prompts)
                 steps.prefill()
                 torch.cuda.synchronize()
                 if i:

@@ -5,6 +5,7 @@ float32: prefill logits and filled caches, then eight decode steps, must
 match the JAX model path to 2e-4.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +48,15 @@ def jamba_smoke_pair():
 
 
 CONFIGS = {"tiny": tiny_pair, "qwen3-0.6b-smoke": smoke_pair,
-           "jamba-v0.1-52b-smoke": jamba_smoke_pair}
+           "jamba-v0.1-52b-smoke": jamba_smoke_pair,
+           **{f"{arch}-smoke": functools.partial(smoke_pair, arch)
+              for arch in ("qwen3-14b", "deepseek-7b", "olmo-1b", "phi3.5-moe-42b-a6.6b",
+                           "dbrx-132b")}}
+# Configs with a prefix of patch embeddings: the serving engine always
+# prepends them (zeros by default), so they are held to the JAX engine in
+# tests/test_torch_configs.py, with the embeddings given to both.
+PATCH_CONFIGS = {"internvl2-2b-smoke": functools.partial(smoke_pair, "internvl2-2b")}
+MODEL_CONFIGS = {**CONFIGS, **PATCH_CONFIGS}
 
 
 def _build(pair, seed=0):
@@ -74,9 +83,9 @@ def _assert_caches_equal(jax_caches, port_caches, cfg):
                 np.testing.assert_allclose(got.numpy(), exp.numpy(), **TOL)
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("name", sorted(MODEL_CONFIGS))
 def test_config_copy_matches_jax(name):
-    jcfg, tcfg = CONFIGS[name]()
+    jcfg, tcfg = MODEL_CONFIGS[name]()
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     assert jcfg.param_count() == tcfg.param_count()
 
@@ -90,9 +99,9 @@ def test_full_config_matches_jax():
         assert jax_get_config(arch).param_count() == get_config(arch).param_count()
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("name", sorted(MODEL_CONFIGS))
 def test_prefill_and_eight_decode_steps_match_jax(name):
-    pair = CONFIGS[name]()
+    pair = MODEL_CONFIGS[name]()
     jcfg, tcfg = pair
     jm, params, model = _build(pair)
     b, s, max_len = 2, 20, 40
@@ -148,10 +157,10 @@ def test_long_prompt_matches_jax_flash_branch():
     _assert_caches_equal(jc, tc, pair[1])
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("name", sorted(MODEL_CONFIGS))
 def test_prefill_matches_jax_forward_train(name):
     """Mirror of tests/test_train_serve.py::test_decode_matches_forward."""
-    jm, params, model = _build(CONFIGS[name](), seed=1)
+    jm, params, model = _build(MODEL_CONFIGS[name](), seed=1)
     b, s = 2, 12
     toks = _tokens(7, (b, s), jm.cfg.vocab)
     hidden, _ = jm.forward_train(params, jnp.asarray(toks))
