@@ -84,18 +84,27 @@ Runs from the repository root and imports only ``repro_torch`` (from
    and random; c in f32 and bf16) and at ragged shapes, and the pinned
    matmul checked (at every band count where K is split or the wgmma
    variant runs) and timed at jamba's projection shapes;
-5. six more decoders at full width, each after the last is freed (ARCHS):
+5. eight more archs at full width, each after the last is freed (ARCHS):
    qwen3-14b (40 layers, group ratio 5), deepseek-7b (30, MHA at hd 128),
    olmo-1b (16, non-parametric LayerNorm, tied embeddings), internvl2-2b
    (24, 256 patch embeddings from the seed before each 256-token prompt
    through ``generate(..., extra_embeds=...)``, ``max_context`` 1,024),
    phi3.5-moe-42b-a6.6b cut to 24 of 32 layers and dbrx-132b (group ratio
    6, top-4 of 16 experts) cut to 8 of 40 (DEPTH: their bf16 weights
-   exceed the 80 GB card): a. every pinned-matmul shape of the arch's
-   prefill and decode at n_bands 1, 8 and all and on the last third of
-   SMs, ``ops.mha_flash`` at its heads and the path's S, windowed and at
-   ragged S, each timed beside its plain version, library call and bound;
-   b. the main path as above.  RT_ARCH (qwen3-14b) also runs c.-e.
+   exceed the 80 GB card), whisper-base (6 decoder and 6 encoder layers,
+   1,500 frame embeddings a row from the seed through ``generate(...,
+   enc_embeds=...)``; the encoder's attention and the cross-attention are
+   plain products) and xlstm-350m (21 mLSTM and 3 sLSTM layers, no
+   attention; the float32 gate products through the pinned matmul):
+   a. every pinned-matmul shape of the arch's prefill and decode at
+   n_bands 1, 8 and all and on the last third of SMs, ``ops.mha_flash``
+   at its heads and the path's S, windowed and at ragged S (where the
+   arch has attention), each timed beside its plain version, library
+   call and bound; b. the main path as above, with the device memory
+   left allocated by the paths before it and its peak, and for
+   whisper-base the encoder's blocks in the one-block-at-a-time float32
+   check.  RT_ARCH (qwen3-14b) also runs c.-e.; no check of a.-b. depends
+   on timing.
 
 Prints each path's kernel totals, a ``{"kernels": [...]}`` line (each
 kernel's launches and times summed over all paths) and, last,
@@ -136,18 +145,19 @@ SCAN_TOL = 1e-4          # rtol = atol, as tests/test_kernels.py: the same f32 F
 # many times the plain bf16 path's own relative L2 error against that run.
 LOGITS_NOISE_FACTOR = 2.0
 ENGINE_JOBS = 4      # whole jobs each cell's service runs under the executor
+PROFILE_WINDOWS = 3  # profiler windows a prefill gets to record every launch
 SIM_PERIODS = 20     # the simulator's horizon, in periods of the service
 # Algorithm 2 as a user admitting services onto the card runs it: Table-1
 # task sets of N tasks of M subtasks, over every SM of the card
 ANALYSIS_SETS = [(util, seed) for util in (0.6, 1.0) for seed in range(3)]
 ANALYSIS_TASKS, ANALYSIS_SUBTASKS, ANALYSIS_NODES = 5, 5, 100_000
 ANALYSIS_TOL = 1e-9      # every fixed point's R^, torch engine against the numpy engine
-# The decoder archs served after jamba, each at full width: kernels and the
-# main path, in this order; RT_ARCH also runs the profile, rt and engine
-# phases.  DEPTH cuts an arch to that many repeats where its bf16 weights
-# and the float32 block check (twice one layer) do not fit the 80 GB card.
+# The archs served after jamba, each at full width: kernels and the main
+# path, in this order; RT_ARCH also runs the profile, rt and engine phases.
+# DEPTH cuts an arch to that many repeats where its bf16 weights and the
+# float32 block check (twice one layer) do not fit the 80 GB card.
 ARCHS = ("qwen3-14b", "deepseek-7b", "olmo-1b", "internvl2-2b", "phi3.5-moe-42b-a6.6b",
-         "dbrx-132b")
+         "dbrx-132b", "whisper-base", "xlstm-350m")
 RT_ARCH = "qwen3-14b"
 DEPTH = {"phi3.5-moe-42b-a6.6b": 24, "dbrx-132b": 8}
 
@@ -270,29 +280,65 @@ def max_context(cfg) -> int:
     return MAX_CONTEXT if seq_len(cfg) + NEW_TOKENS <= MAX_CONTEXT else 2 * MAX_CONTEXT
 
 
-def matmul_calls(cfg) -> dict:
-    """(M, K, N, dtype) -> launches of the pinned matmul on the main path
-    (ROUNDS prefills of BATCH x (patches + PROMPT) positions, NEW_TOKENS
-    decode steps each), from the layer list: attention q/k/v/o; Mamba
-    in_proj, x_proj (once per time chunk) and out_proj; MLP gate/up/down;
-    the MoE router in float32.  The lm head and the MoE experts are plain products."""
+def step_matmuls(cfg, prefill: bool) -> collections.Counter:
+    """(M, K, N, dtype) -> launches of the pinned matmul in one prefill of
+    BATCH x (patches + PROMPT) positions or one decode step, from the layer
+    list: attention q/k/v/o; Mamba in_proj, x_proj (once per time chunk)
+    and out_proj; mLSTM up, q/k/v, the float32 gates and down; sLSTM up,
+    the float32 input and recurrent gate products (M = BATCH, once per
+    step) and down; cross-attention q/o, and in a prefill the encoder's
+    layers and the cross K/V of its BATCH x enc_ctx rows; MLP
+    gate/up/down; the MoE router in float32.  The lm head and the MoE
+    experts are plain products."""
     d, hd, ff, di = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.d_inner
     q, kv, ds = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.mamba_d_state
+    xdi = int(cfg.xlstm_proj_factor * d)
     chunk, n_chunks = scan_chunks()
+    m, xm, xn, steps = ((BATCH * seq_len(cfg), BATCH * chunk, n_chunks, seq_len(cfg)) if prefill
+                        else (BATCH, BATCH, 1, 1))
     calls = collections.Counter()
-    for m, xm, xn, times in ((BATCH * seq_len(cfg), BATCH * chunk, n_chunks, ROUNDS),
-                             (BATCH, BATCH, 1, ROUNDS * NEW_TOKENS)):
-        for spec in layers(cfg):
-            if spec.mixer == "attn":
-                shapes = [(m, d, q), (m, d, kv), (m, d, kv), (m, q, d)]
-            else:
-                shapes = [(m, d, 2 * di)] + [(xm, di, 2 * ds + 1)] * xn + [(m, di, d)]
-            if spec.ffn == "mlp":
-                shapes += [(m, d, ff), (m, d, ff), (m, ff, d)]
-            for shape in shapes:
-                calls[(*shape, cfg.dtype)] += times
-            if spec.ffn == "moe":
-                calls[(m, d, cfg.n_experts, "float32")] += times
+    attn = [(m, d, q), (m, d, kv), (m, d, kv), (m, q, d)]
+    mlp = [(m, d, ff), (m, d, ff), (m, ff, d)]
+    for spec in layers(cfg):
+        f32 = []
+        if spec.mixer == "attn":
+            shapes = list(attn)
+        elif spec.mixer == "mamba":
+            shapes = [(m, d, 2 * di)] + [(xm, di, 2 * ds + 1)] * xn + [(m, di, d)]
+        elif spec.mixer == "mlstm":
+            shapes = [(m, d, 2 * xdi)] + [(m, xdi, xdi)] * 3 + [(m, xdi, d)]
+            f32 = [(m, xdi, 2 * cfg.n_heads)]
+        else:
+            shapes = [(m, d, xdi), (m, xdi, d)]
+            f32 = [(BATCH, xdi, 4 * xdi)] * (2 * steps)
+        if cfg.is_encoder_decoder:
+            shapes += [(m, d, q), (m, q, d)]
+            if prefill:
+                shapes += [(BATCH * cfg.enc_ctx, d, kv)] * 2
+        if spec.ffn == "mlp":
+            shapes += mlp
+        elif spec.ffn == "moe":
+            f32.append((m, d, cfg.n_experts))
+        for shape in shapes:
+            calls[(*shape, cfg.dtype)] += 1
+        for shape in f32:
+            calls[(*shape, "float32")] += 1
+    if prefill:
+        me = BATCH * cfg.enc_ctx
+        for shape in ([(me, d, q), (me, d, kv), (me, d, kv), (me, q, d),
+                       (me, d, ff), (me, d, ff), (me, ff, d)] * cfg.n_enc_layers):
+            calls[(*shape, cfg.dtype)] += 1
+    return calls
+
+
+def matmul_calls(cfg) -> dict:
+    """(M, K, N, dtype) -> launches of the pinned matmul on the main path:
+    ROUNDS prefills and NEW_TOKENS decode steps each."""
+    calls = collections.Counter()
+    for shape, n in step_matmuls(cfg, prefill=True).items():
+        calls[shape] += n * ROUNDS
+    for shape, n in step_matmuls(cfg, prefill=False).items():
+        calls[shape] += n * ROUNDS * NEW_TOKENS
     return dict(calls)
 
 
@@ -303,11 +349,9 @@ def prefill_kernels(cfg) -> dict:
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.persistent_matmul import kernel_name
 
-    chunk, _ = scan_chunks()
     out = collections.Counter()
-    for (m, k, n, dt), calls in matmul_calls(cfg).items():
-        if m in (BATCH * seq_len(cfg), BATCH * chunk):
-            out[kernel_name(m, k, n, getattr(torch, dt))] += calls // ROUNDS
+    for (m, k, n, dt), calls in step_matmuls(cfg, prefill=True).items():
+        out[kernel_name(m, k, n, getattr(torch, dt))] += calls
     n_attn = expected_launches(cfg)["flash_attention"] // ROUNDS
     if n_attn:
         out[flash_attention.kernel_name(getattr(torch, cfg.dtype), cfg.head_dim)] += n_attn
@@ -882,10 +926,10 @@ def phase_kernels_jamba(cfg, n_sms) -> dict:
 
 
 def phase_kernels_arch(cfg, n_sms) -> dict:
-    """A decoder of attention and MLP or MoE layers at its own shapes (the
-    archs after jamba): every pinned-matmul shape of its prefill and decode
-    (the MoE router in float32) at n_bands 1, 8 and all and on the card's
-    last third of SMs, and ops.mha_flash at its (H, Hkv, hd) at the path's
+    """An arch after jamba at its own shapes: every pinned-matmul shape of
+    its prefill and decode (the MoE router and the xLSTM gates in float32)
+    at n_bands 1, 8 and all and on the card's last third of SMs, and, where
+    it has attention layers, ops.mha_flash at its (H, Hkv, hd) at the path's
     S (patches + prompt), windowed, and at ragged S; then each timed."""
     import torch
 
@@ -898,63 +942,87 @@ def phase_kernels_arch(cfg, n_sms) -> dict:
                                                   (1, 8, n_sms))
     print(f"[kernels] persistent_matmul at {len(mm_err)} {cfg.name} shapes x 3 band counts and "
           f"the last third of SMs ok; max abs err {max(mm_err.values()):.3g}")
-    s, h, hkv, hd = seq_len(cfg), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    fl_err = check_flash(BATCH, s, h, hkv, hd, dt, None, gen, old_entry=True)
-    fl_extra = {
-        "window64": check_flash(BATCH, s, h, hkv, hd, dt, 64, gen),
-        "ragged200": check_flash(2, 200, h, hkv, hd, dt, None, gen),
-        "ragged77_window64": check_flash(1, 77, h, hkv, hd, dt, 64, gen),
-    }
-    print(f"[kernels] flash_attention at {cfg.name}'s shape (group ratio {h // hkv}, "
-          f"H={h}/{hkv}, hd={hd}, S={s}) ok: max abs err {fl_err:.3g}, {fl_extra}")
+    out = {"flash_rows": [], "scan_rows": [],
+           "matmul_err": max(v for key, v in mm_err.items() if key[3] == cfg.dtype)}
+    n_flash = expected_launches(cfg)["flash_attention"]
+    if n_flash:
+        s, h, hkv, hd = seq_len(cfg), cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        out["flash_err"] = check_flash(BATCH, s, h, hkv, hd, dt, None, gen, old_entry=True)
+        out["flash_extra_err"] = {
+            "window64": check_flash(BATCH, s, h, hkv, hd, dt, 64, gen),
+            "ragged200": check_flash(2, 200, h, hkv, hd, dt, None, gen),
+            "ragged77_window64": check_flash(1, 77, h, hkv, hd, dt, 64, gen),
+        }
+        print(f"[kernels] flash_attention at {cfg.name}'s shape (group ratio {h // hkv}, "
+              f"H={h}/{hkv}, hd={hd}, S={s}) ok: max abs err {out['flash_err']:.3g}, "
+              f"{out['flash_extra_err']}")
+    else:
+        print(f"[kernels] {cfg.name} has no attention layer: flash_attention is not on its path")
 
-    expected = expected_launches(cfg)
-    return {"matmul_rows": matmul_rows(cfg, calls, gen),
-            "flash_rows": [flash_row(cfg, expected["flash_attention"], gen)],
-            "scan_rows": [],
-            "matmul_err": max(v for key, v in mm_err.items() if key[3] == cfg.dtype),
-            "flash_err": fl_err, "flash_extra_err": fl_extra}
+    out["matmul_rows"] = matmul_rows(cfg, calls, gen)
+    if n_flash:
+        out["flash_rows"] = [flash_row(cfg, n_flash, gen)]
+    return out
 
 
 def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def prefill_f32(model, tokens, extra=None):
+def prefill_f32(model, tokens, extra=None, frames=None):
     """Prefill logits of a float32 copy of the model on the plain versions,
     one block at a time (a float32 copy of a whole large model need not
-    fit beside the bf16 one): cast a block, run it, free it.
+    fit beside the bf16 one): cast a block, run it, free it; with
+    ``frames``, the encoder's blocks first, then its final norm, whose
+    float32 output every decoder block's cross-attention reads.
 
-    Also returns, per block, the relative L2 error of the block's update
-    (output minus input) in the model's dtype, on the kernels and on the
-    plain versions, against the float32 block's, each fed the float32
-    run's input to that block: one block's error, without what the blocks
+    Also returns, per block (the encoder's named ``enc<i>``), the relative
+    L2 error of the block's update (output minus input) in the model's
+    dtype, on the kernels and on the plain versions, against the float32
+    block's, each fed the float32 run's input to that block (and the
+    float32 encoder output): one block's error, without what the blocks
     before it passed on."""
     import torch
-    from repro_torch.models.blocks import block_prefill, init_block_cache
+    from repro_torch.models.blocks import block_encode, block_prefill, init_block_cache
     from repro_torch.models.layers import apply_norm
 
     cfg, f32 = model.cfg, torch.float32
-    x = model._embed(tokens, extra).float()
     block_errs = []
-    for i, block in enumerate(model.layers):
-        spec = model._spec(i)
 
-        def update(blk, dtype):
-            cache = init_block_cache(cfg, spec, tokens.shape[0], max_context(cfg), dtype,
-                                     model.device)
-            x_in = x.to(dtype)
-            out, _ = block_prefill(blk, cfg, spec, x_in, cache, cfg.sliding_window)
-            return out.float() - x_in.float(), out
+    def run(blocks, x, step, name):
+        """x through ``blocks`` one at a time in float32; each block's errors."""
+        for i, block in enumerate(blocks):
+            def update(blk, dtype):
+                x_in = x.to(dtype)
+                out = step(i, blk, x_in, dtype)
+                return out.float() - x_in.float(), out
 
-        kernels, _ = update(block, model.dtype)
-        with plain_kernels():
-            plain, _ = update(block, model.dtype)
-            block32 = copy.deepcopy(block).float()
-            want, x = update(block32, f32)
-        block_errs.append({"layer": i, "mixer": spec.mixer, "ffn": spec.ffn,
-                           "kernels": rel_l2(kernels, want), "plain": rel_l2(plain, want)})
-        del block32, kernels, plain, want
+            kernels, _ = update(block, model.dtype)
+            with plain_kernels():
+                plain, _ = update(block, model.dtype)
+                block32 = copy.deepcopy(block).float()
+                want, x = update(block32, f32)
+            block_errs.append({"layer": name(i), "mixer": block.spec.mixer,
+                               "ffn": block.spec.ffn, "kernels": rel_l2(kernels, want),
+                               "plain": rel_l2(plain, want)})
+            del block32, kernels, plain, want
+        return x
+
+    enc_out = None
+    if frames is not None:
+        enc = run(model.encoder.layers, frames.float(),
+                  lambda i, blk, x_in, dtype: block_encode(blk, cfg, x_in), lambda i: f"enc{i}")
+        enc_out = apply_norm(copy.deepcopy(model.encoder.final_norm).float(), enc, cfg.norm)
+
+    def decoder_step(i, blk, x_in, dtype):
+        cross_ctx = cfg.enc_ctx if cfg.is_encoder_decoder else 0
+        cache = init_block_cache(cfg, model._spec(i), tokens.shape[0], max_context(cfg), dtype,
+                                 model.device, cross_ctx)
+        out, _ = block_prefill(blk, cfg, model._spec(i), x_in, cache, cfg.sliding_window,
+                               None if enc_out is None else enc_out.to(dtype))
+        return out
+
+    x = run(model.layers, model._embed(tokens, extra).float(), decoder_step, lambda i: i)
     x = apply_norm(copy.deepcopy(model.final_norm).float(), x, cfg.norm)
     head = model.embed if cfg.tie_embeddings else model.lm_head
     return x[:, -1:] @ head["w"].float().T, block_errs
@@ -962,14 +1030,15 @@ def prefill_f32(model, tokens, extra=None):
 
 def graphs_match_eager(engine, prompts, held, replayed, extras=None) -> dict:
     """The prompts' jobs on SMs ``held`` issued op by op (the engine's eager
-    steps), each with its patch embeddings (``extras``, where the config
-    has them), against the tokens the graph replays gave (``replayed``):
-    equal.  Returns the last eager job's prefill ms and decode ms/step
-    (CUDA events)."""
+    steps), each with its patch or frame embeddings (``extras``, a dict of
+    ``generate``'s keyword arguments per job, where the config has them),
+    against the tokens the graph replays gave (``replayed``): equal.
+    Returns the last eager job's prefill ms and decode ms/step (CUDA
+    events)."""
     import numpy as np
 
-    extras = extras or [None] * len(prompts)
-    eager = [engine._generate(p, NEW_TOKENS, None, held, eager=True, extra_embeds=e)
+    extras = extras or [{}] * len(prompts)
+    eager = [engine._generate(p, NEW_TOKENS, None, held, eager=True, **e)
              for p, e in zip(prompts, extras)]
     for i, ((out, _), want) in enumerate(zip(eager, replayed)):
         check(np.array_equal(out, want), f"{engine.cfg.name} on SMs {held}: job {i}'s tokens "
@@ -991,6 +1060,7 @@ def phase_main_path(cfg) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    left_gb = torch.cuda.memory_allocated() / 1e9  # what the paths before this one left
     t0 = time.perf_counter()
     engine = ServingEngine(cfg, ServeConfig(max_context=max_context(cfg), batch=BATCH),
                            seed=SEED)
@@ -1004,15 +1074,20 @@ def phase_main_path(cfg) -> dict:
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, (BATCH, PROMPT)).astype(np.int32)
                for _ in range(ROUNDS)]
-    # patch embeddings (internvl2-2b's stub frontend) at the token embeddings' scale
-    extras = [(rng.standard_normal((BATCH, cfg.n_patches, cfg.d_model)) * 0.02).astype(np.float32)
-              if cfg.n_patches else None for _ in range(ROUNDS)]
+    # patch embeddings (internvl2-2b's stub frontend) and frame embeddings
+    # (whisper-base's stub audio frontend) at the token embeddings' scale
+    extras = [{}] * ROUNDS
+    if cfg.n_patches or cfg.is_encoder_decoder:
+        key, rows = (("extra_embeds", cfg.n_patches) if cfg.n_patches
+                     else ("enc_embeds", cfg.enc_ctx))
+        extras = [{key: (rng.standard_normal((BATCH, rows, cfg.d_model)) * 0.02)
+                   .astype(np.float32)} for _ in range(ROUNDS)]
 
     counters = zeroed_counters()
     rounds, outs = [], []
     for p, e in zip(prompts, extras):
         t1 = time.perf_counter()
-        out, stats = engine.generate(p, max_new_tokens=NEW_TOKENS, extra_embeds=e)
+        out, stats = engine.generate(p, max_new_tokens=NEW_TOKENS, **e)
         stats["wall_s"] = time.perf_counter() - t1
         rounds.append(stats)
         outs.append(out)
@@ -1033,14 +1108,17 @@ def phase_main_path(cfg) -> dict:
     model = engine.model
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts[0], device="cuda")
-        extra = None if extras[0] is None else torch.as_tensor(extras[0], device="cuda")
-        got, _ = model.prefill(tokens, model.init_caches(BATCH, max_context(cfg)), extra)
+        extra, frames = (None if key not in extras[0]
+                         else torch.as_tensor(extras[0][key], device="cuda")
+                         for key in ("extra_embeds", "enc_embeds"))
+        got, _ = model.prefill(tokens, model.init_caches(BATCH, max_context(cfg)), extra, frames)
         before = {name: fn.launches for name, fn in counters.items()}
         with plain_kernels():
-            want, _ = model.prefill(tokens, model.init_caches(BATCH, max_context(cfg)), extra)
+            want, _ = model.prefill(tokens, model.init_caches(BATCH, max_context(cfg)), extra,
+                                    frames)
         moved = {name: fn.launches - before[name] for name, fn in counters.items()}
         check(not any(moved.values()), f"{cfg.name}: the plain path launched kernels: {moved}")
-        truth, block_errs = prefill_f32(model, tokens, extra)
+        truth, block_errs = prefill_f32(model, tokens, extra, frames)
     got, want = got.float(), want.float()
     check(got.shape == (BATCH, 1, cfg.vocab) and bool(torch.isfinite(got).all()),
           f"prefill logits {tuple(got.shape)} not finite or mis-shaped")
@@ -1056,7 +1134,8 @@ def phase_main_path(cfg) -> dict:
     tok_s = BATCH / steady["decode_s_per_tok"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     shape = (f"{BATCH}x({cfg.n_patches} patches + {PROMPT} tokens)" if cfg.n_patches
-             else f"{BATCH}x{PROMPT} tokens")
+             else f"{BATCH}x{PROMPT} tokens, {cfg.enc_ctx} frames encoded a row"
+             if cfg.is_encoder_decoder else f"{BATCH}x{PROMPT} tokens")
     print(f"[main] {cfg.name} bf16 batch {BATCH}: prefill {steady['prefill_s'] * 1e3:.3f} ms "
           f"({shape}), decode {steady['decode_s_per_tok'] * 1e3:.3f} ms/step, "
           f"{tok_s:.1f} tokens/s (graph replays, CUDA events); round walls "
@@ -1069,14 +1148,16 @@ def phase_main_path(cfg) -> dict:
     print(f"[main] {cfg.name} one block's update against float32, rel L2, kernels/plain: "
           f"{per_block}; worst layer {worst['layer']} ({worst['mixer']}+{worst['ffn']})")
     print(f"[main] {cfg.name} peak device memory: serving {peak_serve_gb:.2f} GB, with the "
-          f"checks {peak_gb:.2f} GB")
+          f"checks {peak_gb:.2f} GB ({left_gb:.2f} GB of it left allocated by the paths "
+          f"before this one)")
     return {"engine": engine, "prompt": prompts[0],
             "launches": launches, "rounds": rounds, "init_s": init_s, "capture_s": capture_s,
             "eager": eager,
             "logits_rel_l2": rel, "logits_rel_l2_vs_f32": rel_truth,
             "plain_bf16_rel_l2_vs_f32": noise, "block_update_rel_l2": block_errs,
             "logits_max_abs": max_abs, "argmax_agree": argmax_agree,
-            "peak_mem_gb": peak_gb, "peak_serving_mem_gb": peak_serve_gb}
+            "peak_mem_gb": peak_gb, "peak_serving_mem_gb": peak_serve_gb,
+            "left_by_earlier_paths_gb": left_gb}
 
 
 def _profile(fn, steps: int) -> dict:
@@ -1119,16 +1200,35 @@ def _profile(fn, steps: int) -> dict:
 
 def phase_profile(engine, prompt) -> dict:
     """One prefill and eight decode steps under the profiler, as graph
-    replays and issued eagerly, on all SMs."""
+    replays and issued eagerly, on all SMs.  The prefill's pinned-matmul
+    and flash variants must be the shapes' choice, launch for launch.  A
+    step launches the same kernels every time (the counters hold them
+    exactly on the main path), but a profiler window can lose activity
+    records: a prefill window whose variants fall short is profiled again,
+    up to PROFILE_WINDOWS windows, and the first that records every launch
+    is kept; one that records another variant, or more launches, fails at
+    once."""
     import torch
 
     model = engine.model
+    want = prefill_kernels(model.cfg)
     steps = {"prefill": 1, "decode": 8}
     out = {}
     for way in ("graph", "eager"):
         step = engine.steps(PROMPT, eager=way == "eager")
-        engine._static.prompts[PROMPT].copy_(torch.as_tensor(prompt))
-        out[f"prefill_{way}"] = _profile(step.prefill, steps["prefill"])
+        for window in range(1, PROFILE_WINDOWS + 1):
+            engine._static.prompts[PROMPT].copy_(torch.as_tensor(prompt))
+            r = _profile(step.prefill, steps["prefill"])
+            got = r["pinned_launches"]
+            short = (r["idle_share"] is not None and got != want and set(got) <= set(want)
+                     and all(got[k] <= want[k] for k in got))
+            if not short:
+                break
+            print(f"[profile] {model.cfg.name} prefill_{way}: window {window} recorded {got} "
+                  f"of the shapes' {want} ({r['device_ops_per_step']:.0f} device activities): "
+                  f"the profiler lost records" + ("; profiled again" if window < PROFILE_WINDOWS
+                                                  else ""))
+        out[f"prefill_{way}"] = {**r, "windows": window}
         step.decode()
         out[f"decode_{way}"] = _profile(step.decode, steps["decode"])
     for phase, r in out.items():
@@ -1146,7 +1246,6 @@ def phase_profile(engine, prompt) -> dict:
             kind = "pinned matmul" if name.startswith("pinned") else "flash attention"
             print(f"[profile]   {kind} {name}: x{calls // n}/step, "
                   f"{r['pinned_ms'][name]:.4f} ms/step")
-    want = prefill_kernels(model.cfg)
     for way in ("graph", "eager"):
         r = out[f"prefill_{way}"]
         if r["idle_share"] is not None:
@@ -1729,8 +1828,9 @@ def arch_path_config(arch: str):
 
     full = get_config(arch)
     if arch not in DEPTH:
-        print(f"[{arch}] whole: {full.n_layers} layers, {full.param_count() * 2 / 1e9:.1f} GB "
-              f"of bf16 weights; every width as published")
+        enc = f" and {full.n_enc_layers} encoder layers" if full.is_encoder_decoder else ""
+        print(f"[{arch}] whole: {full.n_layers} layers{enc}, {full.param_count() * 2 / 1e9:.1f} "
+              f"GB of bf16 weights; every width as published")
         return full
     cut = dataclasses.replace(full, n_repeats=DEPTH[arch])
     layer_gb = (full.param_count() - dataclasses.replace(full, n_repeats=0).param_count()) \

@@ -1,14 +1,21 @@
-"""Model zoo of the port: decoders of attention or Mamba mixers with MLP or
-MoE ffns, and a prefix of patch embeddings (the encoder-decoder and xLSTM
-mixers are still refused).
+"""Model zoo of the port: decoders of attention, Mamba or xLSTM mixers with
+MLP, MoE or no ffns, a prefix of patch embeddings, and Whisper's encoder
+with the decoder's cross-attention: every arch of the repo.
 
 config.py     ModelConfig / LayerSpec / input shapes (copy of repro.models.config)
 layers.py     norms, rotary, SwiGLU, embeddings
-attention.py  GQA + qk-norm self-attention; prefill through kernels.ops.mha_flash
-blocks.py     block assembly for the attn/mamba mixers and mlp/moe ffns
-model.py      Model: prefill (with optional patch embeddings) / decode over per-layer modules
+attention.py  GQA + qk-norm self-attention (prefill through kernels.ops.mha_flash),
+              cross-attention and the encoder's K/V
+mamba.py      selective SSM mixer (prefill through kernels.ops.mamba_scan)
+moe.py        mixture-of-experts ffn
+xlstm.py      mLSTM and sLSTM mixers
+blocks.py     block assembly for every mixer and ffn, and the cross path
+model.py      Model: encoder, prefill (with optional patch or frame embeddings) and
+              decode over per-layer modules
 """
 from .config import INPUT_SHAPES, InputShape, LayerSpec, ModelConfig
 from .model import Model
+from .xlstm import MLstmState, SLstmState
 
-__all__ = ["INPUT_SHAPES", "InputShape", "LayerSpec", "ModelConfig", "Model"]
+__all__ = ["INPUT_SHAPES", "InputShape", "LayerSpec", "ModelConfig", "Model", "MLstmState",
+           "SLstmState"]

@@ -1,13 +1,17 @@
-"""Grouped-query self-attention: prefill and decode-with-cache paths.
+"""Grouped-query attention: prefill and decode-with-cache paths, and
+cross-attention to an encoder's states.
 
-Counterpart of the self-attention part of ``repro.models.attention``: GQA
-(any n_heads/n_kv_heads ratio), qk-norm (Qwen3), half-split rotary, causal
-and sliding-window masking.  Prefill attention runs through
+Counterpart of ``repro.models.attention``: GQA (any n_heads/n_kv_heads
+ratio), qk-norm (Qwen3), half-split rotary, causal and sliding-window
+masking, and the Whisper decoder's cross-attention (no rope, no mask, no
+qk-norm on its projections).  Causal prefill attention runs through
 ``kernels.ops.mha_flash`` at every sequence length: on the card one launch
 of the hand flash kernel, which reads q [B, S, H, hd] and k/v [B, S, Hkv,
 hd] as this module makes them (GQA included) and writes [B, S, H*hd], the
-output projection's input.  Decode attention, one query over the cache,
-stays plain PyTorch, as in the JAX package.
+output projection's input.  Decode attention (one query over the cache),
+cross-attention and the encoder's non-causal attention stay plain
+PyTorch products with a float32-logits softmax (``_sdpa_small``), as the
+JAX package computes them outside its causal Pallas kernel.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ from repro_torch.kernels import ops
 
 from .layers import _weight, apply_rotary, dense, init_dense, rms_norm, rotary_cos_sin
 
-__all__ = ["KVCache", "Attention", "attention_prefill", "attention_decode"]
+__all__ = ["KVCache", "Attention", "attention_prefill", "attention_decode", "cross_attention",
+           "encode_kv"]
 
 
 class KVCache(NamedTuple):
@@ -29,17 +34,19 @@ class KVCache(NamedTuple):
 
 
 class Attention(nn.Module):
-    """wq [d, H*hd], wk/wv [d, Hkv*hd], wo [H*hd, d]; q_norm/k_norm [hd]."""
+    """wq [d, H*hd], wk/wv [d, Hkv*hd], wo [H*hd, d]; q_norm/k_norm [hd]
+    where the config has qk-norm and the projections are not ``cross``
+    (JAX ``init_attention``)."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         self.wq = _weight((d, cfg.n_heads * hd), dtype, device)
         self.wk = _weight((d, cfg.n_kv_heads * hd), dtype, device)
         self.wv = _weight((d, cfg.n_kv_heads * hd), dtype, device)
         self.wo = _weight((cfg.n_heads * hd, d), dtype, device)
-        self.qk_norm = cfg.qk_norm
-        if cfg.qk_norm:
+        self.qk_norm = cfg.qk_norm and not cross
+        if self.qk_norm:
             self.q_norm = _weight((hd,), dtype, device)
             self.k_norm = _weight((hd,), dtype, device)
 
@@ -55,7 +62,9 @@ def _split_heads(x, n, hd):
     return x.reshape(*x.shape[:-1], n, hd)
 
 
-def _qkv(params: Attention, cfg, x, positions):
+def _qkv(params: Attention, cfg, x, positions, rope: bool = True):
+    """q [..., H, hd], k and v [..., Hkv, hd]; rotary at ``positions``
+    unless ``rope`` is False (the encoder's)."""
     hd = cfg.head_dim
     q = _split_heads(dense(x, params.wq), cfg.n_heads, hd)
     k = _split_heads(dense(x, params.wk), cfg.n_kv_heads, hd)
@@ -63,6 +72,8 @@ def _qkv(params: Attention, cfg, x, positions):
     if params.qk_norm:
         q = rms_norm(q, params.q_norm)
         k = rms_norm(k, params.k_norm)
+    if not rope:
+        return q, k, v
     cos, sin = rotary_cos_sin(positions, hd, cfg.rope_theta)
     return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
 
@@ -73,7 +84,8 @@ def _expand_kv(k, group: int):
 
 
 def _sdpa_small(q, k, v, mask, scale):
-    """Materialized-logits attention (decode: one query over the cache).
+    """Materialized-logits attention: decode (one query over the cache),
+    cross-attention and the encoder (non-causal, ``mask`` None).
 
     q: [B,Sq,H,hd]; k/v: [B,Sk,Hkv,hd]; mask: [B,Sq,Sk] or None."""
     b, sq, h, hd = q.shape
@@ -129,3 +141,18 @@ def attention_decode(params: Attention, cfg, x, cache: KVCache, cache_len,
         valid &= kj > cache_len[:, None] - window
     out = _sdpa_small(q, cache.k, cache.v, valid[:, None, :], cfg.head_dim ** -0.5)
     return dense(out, params.wo), cache
+
+
+def cross_attention(params: Attention, cfg, x, enc_kv: KVCache):
+    """Decoder cross-attention to fixed encoder states, x [B, S, D] against
+    enc_kv's [B, S_enc, Hkv, hd] (no rope, no mask)."""
+    q = _split_heads(dense(x, params.wq), cfg.n_heads, cfg.head_dim)
+    out = _sdpa_small(q, enc_kv.k, enc_kv.v, None, cfg.head_dim ** -0.5)
+    return dense(out, params.wo)
+
+
+def encode_kv(params: Attention, cfg, enc_out):
+    """Cross-attention K/V [B, S_enc, Hkv, hd] of the encoder output."""
+    k = _split_heads(dense(enc_out, params.wk), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(dense(enc_out, params.wv), cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=k, v=v)

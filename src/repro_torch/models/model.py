@@ -1,18 +1,23 @@
-"""Model: a decoder of per-layer modules, with prefill and decode entry points.
+"""Model: a decoder of per-layer modules (and an optional encoder), with
+prefill and decode entry points.
 
-Counterpart of ``repro.models.model.Model`` for decoders of attention or
-Mamba mixers with MLP or MoE ffns (qwen3, deepseek, olmo, phi3.5-moe,
-dbrx, jamba), with an optional prefix of precomputed patch embeddings
-(internvl2's stub vision frontend).  The JAX model scans
+Counterpart of ``repro.models.model.Model`` for every arch of the repo:
+decoders of attention, Mamba or xLSTM mixers with MLP, MoE or no ffns
+(qwen3, deepseek, olmo, phi3.5-moe, dbrx, jamba, xlstm), an optional
+prefix of precomputed patch embeddings (internvl2's stub vision
+frontend), and Whisper's encoder over precomputed frame embeddings, whose
+output the decoder's cross-attention reads.  The JAX model scans
 stacked repeats; here ``layers`` is a ``ModuleList`` with one
 :class:`Block` per layer (layer ``r * len(pattern) + pos`` is pattern
-position ``pos`` of repeat ``r``).  Parameter names follow the JAX tree:
-``embed.w``, ``final_norm.w``, ``layers.<i>.mixer.wq``, ... .
+position ``pos`` of repeat ``r``), and ``encoder.layers`` one per encoder
+layer.  Parameter names follow the JAX tree: ``embed.w``,
+``final_norm.w``, ``layers.<i>.mixer.wq``, ``encoder.layers.<i>.mixer.wq``,
+... .
 
 Entry points:
   init_params(seed) / init_caches(batch, max_len) / reset_caches(caches, cache_len)
-  prefill(tokens, caches, extra_embeds)    -> (last_logits, caches)
-  decode_step(token, caches, cache_len)    -> (logits, caches)
+  prefill(tokens, caches, extra_embeds, enc_embeds) -> (last_logits, caches)
+  decode_step(token, caches, cache_len)             -> (logits, caches)
 
 Caches are written in place: their tensors keep their addresses from the
 first prefill to the last decode step, so a serving engine can allocate
@@ -25,8 +30,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .blocks import Block, block_decode, block_prefill, init_block, init_block_cache
-from .config import ModelConfig
+from .blocks import (Block, block_decode, block_encode, block_prefill, init_block,
+                     init_block_cache)
+from .config import LayerSpec, ModelConfig
 from .layers import Norm, _weight, apply_norm, init_embedding, init_norm
 
 __all__ = ["Model", "resolve_device"]
@@ -41,12 +47,22 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+ENC_SPEC = LayerSpec(mixer="attn", ffn="mlp")  # every encoder layer's
+
+
+class Encoder(nn.Module):
+    """``n_enc_layers`` blocks of attention and MLP, and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.layers = nn.ModuleList(Block(cfg, ENC_SPEC, dtype, device)
+                                    for _ in range(cfg.n_enc_layers))
+        self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
+
+
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.is_encoder_decoder:
-            raise NotImplementedError(
-                "encoders are not ported yet: ROADMAP 'Modules to port' (whisper-base)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -56,8 +72,11 @@ class Model(nn.Module):
             self.lm_head = nn.ParameterDict({"w": _weight((cfg.vocab, d), dt, dev)})
         self.final_norm = Norm(cfg.norm, d, dt, dev)
         self.layers = nn.ModuleList(
-            Block(cfg, self._spec(i), dt, dev) for i in range(cfg.n_layers)
+            Block(cfg, self._spec(i), dt, dev, cross=cfg.is_encoder_decoder)
+            for i in range(cfg.n_layers)
         )
+        if cfg.is_encoder_decoder:
+            self.encoder = Encoder(cfg, dt, dev)
 
     def _spec(self, layer: int):
         return self.cfg.pattern[layer % len(self.cfg.pattern)]
@@ -75,23 +94,32 @@ class Model(nn.Module):
         init_norm(self.final_norm)
         for block in self.layers:
             init_block(block, gen)
+        if self.cfg.is_encoder_decoder:
+            for block in self.encoder.layers:
+                init_block(block, gen)
+            init_norm(self.encoder.final_norm)
 
     def init_caches(self, batch: int, max_len: int) -> list[dict]:
+        """Per-layer caches; in an encoder-decoder each holds ``cross_kv``
+        of ``enc_ctx`` encoder positions."""
+        cross_ctx = self.cfg.enc_ctx if self.cfg.is_encoder_decoder else 0
         return [
             init_block_cache(self.cfg, self._spec(i), batch, max_len, self.dtype,
-                             self.device)
+                             self.device, cross_ctx)
             for i in range(self.cfg.n_layers)
         ]
 
     @torch.no_grad()
     def reset_caches(self, caches: list[dict], cache_len: torch.Tensor) -> None:
         """Zero what a new job must not inherit from the last: every Mamba
-        conv buffer and SSM state, and ``cache_len``.  KV slots at or past
-        a row's ``cache_len`` are masked in decode, so they keep their
-        values."""
+        conv buffer and SSM state, every xLSTM state, the cross-attention
+        K/V, and ``cache_len``, as the JAX engine's fresh caches are.  KV
+        slots at or past a row's ``cache_len`` are masked in decode, so they
+        keep their values."""
         for cache in caches:
-            for t in cache.get("ssm", ()):
-                t.zero_()
+            for key in ("ssm", "xl", "cross_kv"):
+                for t in cache.get(key, ()):
+                    t.zero_()
         cache_len.zero_()
 
     # ----------------------------------------------------------------- embed
@@ -107,18 +135,33 @@ class Model(nn.Module):
         head = self.lm_head if not self.cfg.tie_embeddings else self.embed
         return x @ head["w"].T
 
+    # --------------------------------------------------------------- encoder
+
+    def _encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """Whisper-style encoder over stub frame embeddings [B, S_enc, D]:
+        per layer non-causal attention without rope, then the MLP; then
+        ``encoder.final_norm``."""
+        x = enc_embeds.to(self.dtype)
+        for block in self.encoder.layers:
+            x = block_encode(block, self.cfg, x)
+        return apply_norm(self.encoder.final_norm, x, self.cfg.norm)
+
     # --------------------------------------------------------------- serving
 
-    def prefill(self, tokens: torch.Tensor, caches: list[dict], extra_embeds=None):
+    def prefill(self, tokens: torch.Tensor, caches: list[dict], extra_embeds=None,
+                enc_embeds=None):
         """tokens: [B, S]; extra_embeds: [B, P, d_model] or None, prepended
         to the token embeddings (cast to the model dtype), so the caches
-        fill P + S positions; returns logits of the last position [B, 1, V]
-        and the caches."""
+        fill P + S positions; enc_embeds: [B, enc_ctx, d_model] or None,
+        encoded once, its cross K/V written into every layer's
+        ``cross_kv``.  Returns logits of the last position [B, 1, V] and
+        the caches."""
         cfg = self.cfg
+        enc_out = self._encode(enc_embeds) if enc_embeds is not None else None
         x = self._embed(tokens, extra_embeds)
         for i, block in enumerate(self.layers):
             x, caches[i] = block_prefill(block, cfg, self._spec(i), x, caches[i],
-                                         cfg.sliding_window)
+                                         cfg.sliding_window, enc_out)
         x = apply_norm(self.final_norm, x, cfg.norm)
         return self._logits(x[:, -1:]), caches
 

@@ -4,7 +4,8 @@ and samplers, usable standalone or under an RT admission controller.
 Counterpart of ``repro.serving.engine``.  The caches and the step's
 inputs and outputs are static: allocated once per engine (its batch and
 ``max_context``) and written in place, a config's patch embeddings
-(internvl2-2b) among the step's inputs.  Each job resets them, then runs
+(internvl2-2b) and an encoder-decoder's frame embeddings (whisper-base)
+among the step's inputs.  Each job resets them, then runs
 a prefill step and a decode step per token; the sampled tokens collect in a
 device buffer, copied to the host once a job.  On the card each step is a
 CUDA graph replay (:class:`~repro_torch.serving.graphs.StepGraph`, as the
@@ -116,9 +117,11 @@ class _Static:
     """One engine's device state between steps: the caches, each row's
     ``cache_len``, the prompt of each length, the patch embeddings that
     precede it (``patches``, [B, n_patches, d_model] in the model dtype;
-    None where the config has none), the last sampled token, the decode
-    step's index and the tokens it has emitted.  Plain tensors, not
-    inference tensors, so they can be written outside inference mode."""
+    None where the config has none), the encoder's frame embeddings
+    (``frames``, [B, enc_ctx, d_model] in the model dtype; None but in an
+    encoder-decoder), the last sampled token, the decode step's index and
+    the tokens it has emitted.  Plain tensors, not inference tensors, so
+    they can be written outside inference mode."""
 
     @torch.inference_mode(False)
     def __init__(self, model: Model, batch: int, max_context: int):
@@ -126,6 +129,8 @@ class _Static:
         self.caches = model.init_caches(batch, max_context)
         self.patches = (torch.zeros((batch, cfg.n_patches, cfg.d_model), dtype=model.dtype,
                                     device=dev) if cfg.n_patches else None)
+        self.frames = (torch.zeros((batch, cfg.enc_ctx, cfg.d_model), dtype=model.dtype,
+                                   device=dev) if cfg.is_encoder_decoder else None)
         self.cache_len = torch.zeros(batch, dtype=torch.int32, device=dev)
         self.tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -370,14 +375,18 @@ class ServingEngine:
         max_new_tokens: int = 16,
         generator: Optional[torch.Generator] = None,
         extra_embeds=None,             # [B, n_patches, d_model], default zeros
+        enc_embeds=None,               # [B, enc_ctx, d_model], default zeros
     ) -> tuple[np.ndarray, dict]:
         """One job on the SMs the service holds (all, when not admitted).
         Not admitted, its first job of a prompt length captures the steps;
         admitted, a job runs the graphs captured at admission or raises.
         A config with ``n_patches`` prepends ``extra_embeds`` (zeros when
-        None, as the JAX engine does) to every row's prompt."""
+        None, as the JAX engine does) to every row's prompt; an
+        encoder-decoder encodes ``enc_embeds`` (zeros when None, as the JAX
+        engine does) in the prefill, and its decoder attends to them."""
         return self._generate(prompts, max_new_tokens, generator, self.sm_range or (None, 0),
-                              lazy=self._rt is None, extra_embeds=extra_embeds)
+                              lazy=self._rt is None, extra_embeds=extra_embeds,
+                              enc_embeds=enc_embeds)
 
     # ---- the steps ----------------------------------------------------------
 
@@ -393,10 +402,11 @@ class ServingEngine:
 
     def _prefill_step(self, seq_len: int, generator) -> None:
         """Reset the job's state, fill the caches from the patch embeddings
-        (if any) and the prompt, and sample the first token."""
+        (if any) and the prompt, and the cross K/V from the frame embeddings
+        (if any), and sample the first token."""
         st, model = self._static, self.model
         model.reset_caches(st.caches, st.cache_len)
-        logits, _ = model.prefill(st.prompts[seq_len], st.caches, st.patches)
+        logits, _ = model.prefill(st.prompts[seq_len], st.caches, st.patches, st.frames)
         st.cache_len.add_(seq_len + self.cfg.n_patches)
         st.step.zero_()
         st.tok.copy_(self._sample(generator, logits[:, -1, :])[:, None])
@@ -462,22 +472,16 @@ class ServingEngine:
             # a pool whose graphs are all gone takes no further capture
             self._pool = None
 
-    def _write_inputs(self, prompts, extra_embeds=None) -> None:
-        """Copy a job's prompts, and its patch embeddings (zeros when None),
-        into the static buffers its steps read."""
+    def _write_inputs(self, prompts, extra_embeds=None, enc_embeds=None) -> None:
+        """Copy a job's prompts, its patch embeddings and its frame
+        embeddings (each zeros when None) into the static buffers its steps
+        read."""
         st = self._static
         st.prompts[prompts.shape[1]].copy_(torch.as_tensor(prompts, dtype=torch.int32))
-        if st.patches is None:
-            if extra_embeds is not None:
-                raise ValueError(f"{self.cfg.name} takes no patch embeddings (n_patches 0)")
-        elif extra_embeds is None:
-            st.patches.zero_()
-        else:
-            extra = torch.as_tensor(extra_embeds)
-            if tuple(extra.shape) != tuple(st.patches.shape):
-                raise ValueError(f"extra_embeds {tuple(extra.shape)} are not "
-                                 f"[batch, n_patches, d_model] = {tuple(st.patches.shape)}")
-            st.patches.copy_(extra)
+        _write_embeds(st.patches, extra_embeds, "extra_embeds", "n_patches",
+                      f"{self.cfg.name} takes no patch embeddings (n_patches 0)")
+        _write_embeds(st.frames, enc_embeds, "enc_embeds", "enc_ctx",
+                      f"{self.cfg.name} takes no frame embeddings (no encoder)")
 
     def _check_context(self, seq_len: int, new_tokens: int, what: str) -> None:
         if self.cfg.n_patches + seq_len + new_tokens > self.serve.max_context:
@@ -488,13 +492,13 @@ class ServingEngine:
     @torch.inference_mode()
     def _generate(self, prompts, max_new_tokens, generator, held, lazy: bool = False,
                   eager: bool = False, spans: Optional[dict] = None,
-                  extra_embeds=None) -> tuple[np.ndarray, dict]:
+                  extra_embeds=None, enc_embeds=None) -> tuple[np.ndarray, dict]:
         """One job, its pinned matmuls on ``held`` = (n_bands, first SM);
         ``lazy`` captures its steps first where they are not, ``eager``
         issues them op by op (the card's reference for the graphs).  A
         ``spans`` dict given receives the prefill's span (``prefill_s``)
-        and each decode step's (``decode_s``), in seconds.  The patch
-        embeddings are written into their static buffer before the
+        and each decode step's (``decode_s``), in seconds.  The patch and
+        frame embeddings are written into their static buffers before the
         prefill, as the prompt is, so a replayed graph reads this job's."""
         b, s = prompts.shape
         if b != self.serve.batch:
@@ -504,7 +508,7 @@ class ServingEngine:
             self.capture(s, held)
         steps = self.steps(s, held, generator, eager)
         st = self._static
-        self._write_inputs(prompts, extra_embeds)
+        self._write_inputs(prompts, extra_embeds, enc_embeds)
         prefill_t, decode_t = _StepTimer(self.device), _StepTimer(self.device)
         prefill_t.start()
         steps.prefill()
@@ -608,6 +612,23 @@ class ServingEngine:
                       **{key: [j[key] for j in timed]
                          for key in ("prefill_span_ms", "step_span_ms", "rest_ms")}}
         return out
+
+
+def _write_embeds(buf: Optional[torch.Tensor], embeds, name: str, length: str,
+                  refused: str) -> None:
+    """Copy ``embeds`` into the static buffer ``buf`` [batch, ``length``,
+    d_model] (zeros when None); a config without the buffer refuses them."""
+    if buf is None:
+        if embeds is not None:
+            raise ValueError(refused)
+    elif embeds is None:
+        buf.zero_()
+    else:
+        given = torch.as_tensor(embeds)
+        if tuple(given.shape) != tuple(buf.shape):
+            raise ValueError(f"{name} {tuple(given.shape)} are not "
+                             f"[batch, {length}, d_model] = {tuple(buf.shape)}")
+        buf.copy_(given)
 
 
 def _regraph_all(controller) -> None:

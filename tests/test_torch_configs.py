@@ -2,9 +2,10 @@
 
 All ten configs, full and smoke, equal the JAX package's field by field;
 the skip table, the per-shape configs and the long-context variant too.
-The parameter trees of the six decoder archs the port serves carry over
-leaf for leaf (tied embeddings, LayerNorm biases, the non-parametric
-norm's placeholder, MoE-only blocks).  internvl2-2b's patch embeddings,
+The parameter trees of the eight archs served after qwen3-0.6b and jamba
+carry over leaf for leaf (tied embeddings, LayerNorm biases, the
+non-parametric norm's placeholder, MoE-only blocks, xLSTM mixers without
+an ffn, Whisper's encoder stack and cross-attention).  internvl2-2b's patch embeddings,
 from a numpy seed, go through the port's prefill and decode and through
 its serving engine, held to the JAX model and engine; the engine's
 static patch buffer is rewritten for every job a graph replays.
@@ -24,7 +25,6 @@ from repro.serving import ServeConfig as JServeConfig
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch import configs
 from repro_torch.convert import params_from_jax
-from repro_torch.models import Model
 from repro_torch.serving import ServeConfig, ServingEngine
 
 from test_torch_graphs import stub_graphs  # noqa: F401  (a fixture)
@@ -32,7 +32,7 @@ from test_torch_model import (MODEL_CONFIGS, PATCH_CONFIGS, TOL, _assert_caches_
                               _tokens)
 
 SERVED = ("qwen3-14b", "deepseek-7b", "olmo-1b", "internvl2-2b", "phi3.5-moe-42b-a6.6b",
-          "dbrx-132b")
+          "dbrx-132b", "whisper-base", "xlstm-350m")
 
 
 def test_registry_matches_jax():
@@ -71,18 +71,13 @@ def test_shape_table_matches_jax(arch):
     assert dataclasses.asdict(variant) == dataclasses.asdict(jvariant)
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "xlstm-350m"])
-def test_configs_held_as_data_only_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(configs.get_smoke_config(arch), device="cpu")
-
-
 @pytest.mark.parametrize("arch", SERVED)
 def test_params_carry_over_leaf_for_leaf(arch):
     """Every leaf of the JAX tree lands on one port parameter and back:
     no lm_head where embeddings are tied, a bias beside each LayerNorm
-    weight, the non-parametric norm's placeholder ``np``, and MoE leaves of
-    MoE-only blocks unstacked per layer."""
+    weight, the non-parametric norm's placeholder ``np``, MoE leaves of
+    MoE-only blocks unstacked per layer, no norm2 where a block has no ffn,
+    and the encoder's one stack unstacked per encoder layer."""
     pair = MODEL_CONFIGS[f"{arch}-smoke"]()
     jcfg, cfg = pair
     _, params, model = _build(pair, seed=4)
@@ -97,7 +92,9 @@ def test_params_carry_over_leaf_for_leaf(arch):
     for layer in range(cfg.n_layers):
         r, pos = divmod(layer, len(cfg.pattern))
         stacked = params["layers"][pos]
-        for norm in ("norm1", "norm2"):
+        norms = ("norm1", "norm2") if cfg.pattern[pos].ffn != "none" else ("norm1",)
+        assert (f"layers.{layer}.norm2.{next(iter(norm_leaves))}" in state) == (len(norms) == 2)
+        for norm in norms:
             for leaf in norm_leaves:
                 np.testing.assert_array_equal(state[f"layers.{layer}.{norm}.{leaf}"].numpy(),
                                               np.asarray(stacked[norm][leaf][r]))
@@ -109,6 +106,12 @@ def test_params_carry_over_leaf_for_leaf(arch):
                 np.testing.assert_array_equal(got.numpy(), want)
     if cfg.norm == "nonparam_ln":
         assert state["final_norm.np"].shape == ()
+    assert any(k.startswith("encoder.") for k in state) == cfg.is_encoder_decoder
+    for i in range(cfg.n_enc_layers):
+        for key, leaf in (("mixer.wq", ("mixer", "wq")), ("ffn.w_down", ("ffn", "w_down")),
+                          ("norm1.b", ("norm1", "b"))):
+            np.testing.assert_array_equal(state[f"encoder.layers.{i}.{key}"].numpy(),
+                                          np.asarray(params["encoder"]["layers"][leaf[0]][leaf[1]][i]))
 
 
 def _patches(seed, cfg, batch):

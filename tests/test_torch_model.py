@@ -2,10 +2,12 @@
 
 JAX ``Model.init_params`` → numpy → ``repro_torch.convert`` → the port, in
 float32: prefill logits and filled caches, then eight decode steps, must
-match the JAX model path to 2e-4.
+match the JAX model path to 2e-4.  An encoder-decoder config (whisper)
+gets the same frame embeddings, from a numpy seed, in both packages.
 """
 import dataclasses
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +19,7 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import LayerSpec as JLayerSpec
 from repro.models import Model as JModel
 from repro.models import ModelConfig as JModelConfig
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.convert import caches_from_jax, params_from_jax
 from repro_torch.models import LayerSpec, Model, ModelConfig
 
@@ -51,12 +53,16 @@ CONFIGS = {"tiny": tiny_pair, "qwen3-0.6b-smoke": smoke_pair,
            "jamba-v0.1-52b-smoke": jamba_smoke_pair,
            **{f"{arch}-smoke": functools.partial(smoke_pair, arch)
               for arch in ("qwen3-14b", "deepseek-7b", "olmo-1b", "phi3.5-moe-42b-a6.6b",
-                           "dbrx-132b")}}
+                           "dbrx-132b", "xlstm-350m")}}
 # Configs with a prefix of patch embeddings: the serving engine always
 # prepends them (zeros by default), so they are held to the JAX engine in
 # tests/test_torch_configs.py, with the embeddings given to both.
 PATCH_CONFIGS = {"internvl2-2b-smoke": functools.partial(smoke_pair, "internvl2-2b")}
-MODEL_CONFIGS = {**CONFIGS, **PATCH_CONFIGS}
+# Encoder-decoder configs: the serving engine always encodes frame
+# embeddings (zeros by default), so they are held to the JAX engine in
+# tests/test_torch_encoder.py, with the embeddings given to both.
+ENC_CONFIGS = {"whisper-base-smoke": functools.partial(smoke_pair, "whisper-base")}
+MODEL_CONFIGS = {**CONFIGS, **PATCH_CONFIGS, **ENC_CONFIGS}
 
 
 def _build(pair, seed=0):
@@ -70,6 +76,20 @@ def _build(pair, seed=0):
 
 def _tokens(seed, shape, vocab):
     return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+def _frames(seed, cfg, batch):
+    """Frame embeddings [batch, enc_ctx, d_model] from a numpy seed for an
+    encoder-decoder config; None for any other."""
+    if not cfg.is_encoder_decoder:
+        return None
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, cfg.enc_ctx, cfg.d_model)).astype(np.float32)
+
+
+def _as(module, a):
+    """A numpy array (or None) as the array type of ``module`` (jnp or torch)."""
+    return None if a is None else (jnp.asarray(a) if module is jnp else torch.as_tensor(a))
 
 
 def _assert_caches_equal(jax_caches, port_caches, cfg):
@@ -106,10 +126,13 @@ def test_prefill_and_eight_decode_steps_match_jax(name):
     jm, params, model = _build(pair)
     b, s, max_len = 2, 20, 40
     toks = _tokens(1, (b, s), jcfg.vocab)
+    frames = _frames(3, tcfg, b)
 
-    jl, jc, _ = jm.prefill(params, jnp.asarray(toks), jm.init_caches(b, max_len))
+    jl, jc, _ = jm.prefill(params, jnp.asarray(toks), jm.init_caches(b, max_len), None,
+                           _as(jnp, frames))
     with torch.inference_mode():
-        tl, tc = model.prefill(torch.as_tensor(toks), model.init_caches(b, max_len))
+        tl, tc = model.prefill(torch.as_tensor(toks), model.init_caches(b, max_len), None,
+                               _as(torch, frames))
     assert tl.shape == (b, 1, jcfg.vocab)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     _assert_caches_equal(jc, tc, tcfg)
@@ -163,10 +186,12 @@ def test_prefill_matches_jax_forward_train(name):
     jm, params, model = _build(MODEL_CONFIGS[name](), seed=1)
     b, s = 2, 12
     toks = _tokens(7, (b, s), jm.cfg.vocab)
-    hidden, _ = jm.forward_train(params, jnp.asarray(toks))
+    frames = _frames(8, model.cfg, b)
+    hidden, _ = jm.forward_train(params, jnp.asarray(toks), None, _as(jnp, frames))
     full_logits = np.asarray(jm._logits(params, hidden[:, -1:]))
     with torch.inference_mode():
-        tl, _ = model.prefill(torch.as_tensor(toks), model.init_caches(b, 32))
+        tl, _ = model.prefill(torch.as_tensor(toks), model.init_caches(b, 32), None,
+                              _as(torch, frames))
     np.testing.assert_allclose(tl.numpy(), full_logits, **TOL)
 
 
@@ -197,22 +222,27 @@ def test_init_params_is_seeded():
     assert torch.equal(sa["layers.0.norm1.w"], torch.ones(tcfg.d_model))
 
 
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_builds_on_the_cpu(arch):
+    """Every arch of the repo is a port Model (smoke size), with its random
+    weights from a seed finite."""
+    model = Model(get_smoke_config(arch), device="cpu")
+    model.init_params(0)
+    assert all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    assert hasattr(model, "encoder") == model.cfg.is_encoder_decoder
+
+
+def test_no_module_refuses_a_layer_kind():
+    models = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "models"
+    for path in models.glob("*.py"):
+        assert "NotImplementedError" not in path.read_text(), path.name
+
+
 def test_default_device_is_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present; the default device works")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(tiny_pair()[1])
-
-
-@pytest.mark.parametrize("mixer,ffn,n_enc_layers",
-                         [("mlstm", "none", 0), ("slstm", "mlp", 0), ("attn", "mlp", 2)])
-def test_unported_layers_raise(mixer, ffn, n_enc_layers):
-    _, tcfg = _pair(name="x", arch_type="hybrid", d_model=32, n_heads=2, n_kv_heads=2,
-                    d_ff=64, vocab=64, n_repeats=1, n_experts=4, top_k=2,
-                    n_enc_layers=n_enc_layers, enc_ctx=8 * n_enc_layers,
-                    pattern=((mixer, ffn),), dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(tcfg, device="cpu")
 
 
 def test_jamba_prefill_moe_aux_matches_jax(monkeypatch):
