@@ -106,7 +106,20 @@ Runs from the repository root and imports only ``repro_torch`` (from
    check.  RT_ARCH (qwen3-14b) also runs c.-e.; no check of a.-b. depends
    on timing.
 
-Prints each path's kernel totals, a ``{"kernels": [...]}`` line (each
+6. train, after every serving path (ROADMAP queue 1, item 1): the JAX
+   example's qwen3-100m (12 layers, d 768, float32) for 200 AdamW steps
+   and full-width qwen3-0.6b (bf16) for 20, 8 x 256 tokens a step of the
+   synthetic bigram pipeline from seed 0, through ``launch.train.
+   train_step`` (plain products under autograd: no hand kernel, whose
+   counters must not move); every loss and grad norm finite, the 100M
+   run's last-10 mean loss below its first-10 mean, and its checkpoint
+   loaded into a second model and optimizer state bit-equal at step 200;
+   ms/step (CUDA events), the first step's wall and the peak memory, beside
+   the card's name and power limit.  No check depends on timing.
+
+A failure in any phase prints ``chip_smoke.py: FAILED in <phase>: ...``
+with its traceback and exits 1.  Prints each path's kernel totals, a
+``{"kernels": [...]}`` line (each
 kernel's launches and times summed over all paths) and, last,
 ``{"ok": true, ...}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -123,7 +136,9 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
+import traceback
 from pathlib import Path
 from unittest import mock
 
@@ -160,6 +175,15 @@ ARCHS = ("qwen3-14b", "deepseek-7b", "olmo-1b", "internvl2-2b", "phi3.5-moe-42b-
          "dbrx-132b", "whisper-base", "xlstm-350m")
 RT_ARCH = "qwen3-14b"
 DEPTH = {"phi3.5-moe-42b-a6.6b": 24, "dbrx-132b": 8}
+# The training phase, after every serving path: the JAX example's
+# qwen3-100m (float32) and full-width qwen3-0.6b (bf16), each from SEED on
+# the synthetic bigram pipeline at TRAIN_BATCH x TRAIN_SEQ tokens a step;
+# name -> (steps, AdamW lr, warmup steps).  The 100M run must learn (the
+# last ten steps' mean loss below the first ten's) and round-trip a
+# checkpoint bit-exactly; 20 steps on a 151,936-token vocabulary are no test
+# of learning, so the 0.6b run is held to finite steps only.
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN = {"qwen3-100m": (200, 6e-4, 20), "qwen3-0.6b": (20, 3e-4, 2)}
 
 
 class SmokeFailure(Exception):
@@ -1808,6 +1832,134 @@ def run_path(cfg, kernels_phase, n_sms, rt: bool = True) -> dict:
     return out
 
 
+def train_configs() -> dict:
+    """name -> (config, steps, AdamWConfig) of each TRAIN run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import model_100m
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfgs = {"qwen3-100m": model_100m(), "qwen3-0.6b": get_config("qwen3-0.6b")}
+    return {name: (cfgs[name], steps, AdamWConfig(lr=lr, warmup_steps=warmup,
+                                                  total_steps=steps))
+            for name, (steps, lr, warmup) in TRAIN.items()}
+
+
+def train_run(cfg, steps: int, opt_cfg, device="cuda"):
+    """``steps`` AdamW steps of ``cfg`` from SEED on the bigram pipeline ->
+    (model, opt_state, record): every step's loss and grad norm (all
+    finite) and the hand kernels' launches during training (all 0); on the
+    card also the first step's wall, ms/step over the rest (CUDA events)
+    and the peak memory."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import init_opt_state
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=device)
+    model.init_params(SEED)
+    model.requires_grad_(True)
+    opt_state = init_opt_state(model)
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH, seed=SEED))
+    tokens, labels = (torch.as_tensor(np.stack(a), device=device)
+                      for a in zip(*(data.batch(i) for i in range(steps))))
+    counters = zeroed_counters()
+    losses, norms = [], []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if cuda and i == 1:
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        opt_state, loss, metrics = train_step(model, opt_cfg, opt_state, tokens[i], labels[i])
+        losses.append(loss)
+        norms.append(metrics["grad_norm"])
+    record = {"losses": torch.stack(losses).tolist(), "grad_norms": torch.stack(norms).tolist(),
+              "launches": {name: fn.launches for name, fn in counters.items()}}
+    if cuda:
+        end.record()
+        torch.cuda.synchronize()
+        record.update(first_step_s=first_s, ms_per_step=start.elapsed_time(end) / (steps - 1),
+                      peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                      host_threads=threading.active_count())
+    check(all(map(math.isfinite, record["losses"] + record["grad_norms"])),
+          f"{cfg.name}: a loss or grad norm is not finite: {record}")
+    check(not any(record["launches"].values()),
+          f"{cfg.name}: a hand kernel launched in training: {record['launches']}")
+    return model, opt_state, record
+
+
+def checkpoint_round_trip(model, opt_state, steps: int) -> dict:
+    """Save model and opt_state, load them into a second model (other
+    weights) and a fresh state: parameters, m and v bit-equal, the step
+    ``steps``."""
+    import tempfile
+
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.optimizer import init_opt_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, steps, model, opt_state)
+        save_s, size_gb = time.perf_counter() - t0, path.stat().st_size / 1e9
+        other = Model(model.cfg, device=model.device)
+        other.init_params(SEED + 1)
+        t0 = time.perf_counter()
+        step, other, opt2 = load_checkpoint(path, other, init_opt_state(other))
+        load_s = time.perf_counter() - t0
+    mine = dict(model.named_parameters())
+    bad = [n for n, p in other.named_parameters() if not torch.equal(p, mine[n])]
+    bad += [f"{half}:{n}" for half, a, b in (("m", opt_state.m, opt2.m), ("v", opt_state.v, opt2.v))
+            for n in a if not torch.equal(a[n], b[n])]
+    check(not bad, f"{model.cfg.name}: checkpoint round trip differs in {bad[:5]}")
+    check(step == steps == int(opt2.step), f"checkpoint step {step}, state {int(opt2.step)}, "
+          f"{steps} steps run")
+    return {"save_s": save_s, "load_s": load_s, "gb": size_gb}
+
+
+def phase_train(smi: str) -> dict:
+    """Each TRAIN run on the card after the serving paths (no timing check);
+    both models freed before it returns."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, (cfg, steps, opt_cfg) in train_configs().items():
+        model, opt_state, rec = train_run(cfg, steps, opt_cfg)
+        losses = rec["losses"]
+        first, last = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+        print(f"[train] {smi}: {name} {cfg.dtype}, {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+              f"{cfg.vocab}, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, "
+              f"{steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens from seed {SEED}: loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (first-10 mean {first:.4f}, last-10 "
+              f"{last:.4f}); {rec['ms_per_step']:.3f} ms/step (CUDA events, steps 2..{steps}; "
+              f"first step {rec['first_step_s']:.2f} s), peak {rec['peak_gb']:.2f} GB, "
+              f"{rec['host_threads']} host threads; hand-kernel launches {rec['launches']}")
+        if name == "qwen3-100m":
+            check(last < first, f"{name}: loss did not fall: first-10 {first}, last-10 {last}")
+            rec["checkpoint"] = ckpt = checkpoint_round_trip(model, opt_state, steps)
+            print(f"[train] {smi}: {name} checkpoint of {ckpt['gb']:.3f} GB saved in "
+                  f"{ckpt['save_s']:.2f} s, loaded in {ckpt['load_s']:.2f} s: parameters, m and "
+                  f"v bit-equal, step {steps}")
+        out[name] = rec
+        del model, opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[train] phase: {out['seconds']:.1f} s")
+    return out
+
+
 def jamba_one_period():
     """jamba-v0.1-52b at full width, cut in depth to one period."""
     from repro_torch.configs import get_config
@@ -1904,24 +2056,36 @@ def main() -> int:
 
     report: dict = {}
     t0 = time.perf_counter()
+    phase = "device"
     try:
         report["device"] = phase_device()
+        smi, sms = report["device"]["nvidia_smi"], report["device"]["sms"]
+        phase = "build"
         report["build"] = phase_build()
-        sms = report["device"]["sms"]
-        report["analysis"] = phase_analysis(sms, report["device"]["nvidia_smi"])
-        report["fig4"] = phase_fig4(report["device"]["nvidia_smi"])
-        report["fig6"] = phase_fig6(report["device"]["nvidia_smi"], sms)
+        phase = "analysis"
+        report["analysis"] = phase_analysis(sms, smi)
+        phase = "fig4"
+        report["fig4"] = phase_fig4(smi)
+        phase = "fig6"
+        report["fig6"] = phase_fig6(smi, sms)
+        phase = "qwen3-0.6b"
         report["qwen3-0.6b"] = run_path(get_config("qwen3-0.6b"), phase_kernels_qwen, sms)
+        phase = "jamba-v0.1-52b"
         report["jamba-v0.1-52b"] = run_path(jamba_one_period(), phase_kernels_jamba, sms)
         for arch in ARCHS:
+            phase = arch
             report[arch] = run_path(arch_path_config(arch), phase_kernels_arch, sms,
                                     rt=arch == RT_ARCH)
-    except SmokeFailure as exc:
-        print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
+        phase = "train"
+        report["train"] = phase_train(smi)
+        phase = "report"
+        paths = {name: report[name] for name in ("qwen3-0.6b", "jamba-v0.1-52b", *ARCHS)}
+        report["path_totals"] = {name: path_totals(name, path) for name, path in paths.items()}
+        line = kernels_line(list(paths.values()))
+    except Exception as exc:  # any failure: name the phase, keep the traceback, exit 1
+        print(f"chip_smoke.py: FAILED in {phase}: {type(exc).__name__}: {exc}", file=sys.stderr)
+        traceback.print_exc()
         return 1
-    paths = {name: report[name] for name in ("qwen3-0.6b", "jamba-v0.1-52b", *ARCHS)}
-    report["path_totals"] = {name: path_totals(name, path) for name, path in paths.items()}
-    line = kernels_line(list(paths.values()))
     report["kernels_line"] = line
     report["seconds"] = time.perf_counter() - t0
     OUT_DIR.mkdir(exist_ok=True)

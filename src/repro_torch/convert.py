@@ -14,10 +14,17 @@ Input is the JAX tree as nested dicts/tuples of numpy arrays (e.g.
 Every leaf carries over under its own name, so tied embeddings (no
 ``lm_head``), LayerNorm's ``b`` and the non-parametric norm's placeholder
 ``np`` need nothing of their own.
+
+The other way, :func:`jax_layout` lays the port's parameter names out as
+the JAX tree (layers stacked per pattern position again), which
+:func:`jax_leaves` flattens in JAX's leaf order (dict keys sorted) and
+:func:`jax_treedef` prints as ``str`` of JAX's treedef does: the optimizer
+and the checkpoint walk parameters in that order, and
+:func:`params_to_jax` gives the JAX package a model's parameters.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Iterable, Mapping
 
 import numpy as np
 import torch
@@ -26,7 +33,8 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.mamba import MambaState
 from repro_torch.models.xlstm import MLstmState, SLstmState
 
-__all__ = ["params_from_jax", "caches_from_jax"]
+__all__ = ["params_from_jax", "caches_from_jax", "jax_layout", "jax_leaves", "jax_treedef",
+           "params_to_jax"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str, out: dict) -> None:
@@ -92,3 +100,86 @@ def caches_from_jax(caches, cfg, device="cpu") -> list[dict]:
                                                      for a in state))
                 for key, state in stacked.items()}
     return out
+
+
+def jax_layout(names: Iterable[str], cfg) -> dict:
+    """The JAX parameter tree over the port's parameter names (in layer
+    order, as ``named_parameters`` gives them): each leaf a name, or for a
+    leaf stacked over layers (``layers``: one dict per pattern position;
+    ``encoder.layers``) the list of its layers' names, repeat by repeat."""
+    tree: dict = {}
+    n_pos = len(cfg.pattern)
+    layers: list = [{} for _ in range(n_pos)]
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "layers":
+            _insert(layers[int(parts[1]) % n_pos], parts[2:], name, stacked=True)
+        elif parts[:2] == ["encoder", "layers"]:
+            enc_layers = tree.setdefault("encoder", {}).setdefault("layers", {})
+            _insert(enc_layers, parts[3:], name, stacked=True)
+        else:
+            _insert(tree, parts, name, stacked=False)
+    tree["layers"] = tuple(layers)
+    return tree
+
+
+def _insert(tree: dict, path: list, name: str, stacked: bool) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    if stacked:
+        tree.setdefault(path[-1], []).append(name)
+    else:
+        tree[path[-1]] = name
+
+
+def jax_leaves(tree) -> list:
+    """The leaves of a :func:`jax_layout` tree in JAX's flattening order."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in jax_leaves(tree[key])]
+    if isinstance(tree, tuple):
+        return [leaf for sub in tree for leaf in jax_leaves(sub)]
+    return [tree]
+
+
+def _render(tree) -> str:
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"'{k}': {_render(tree[k])}" for k in sorted(tree)) + "}"
+    if isinstance(tree, tuple):
+        return "(" + ", ".join(_render(t) for t in tree) + ("," if len(tree) == 1 else "") + ")"
+    return "*"
+
+
+def jax_treedef(tree, namedtuple: str = "") -> str:
+    """``str`` of the JAX treedef of a :func:`jax_layout` tree; with
+    ``namedtuple`` (e.g. ``"OptState"``), of that NamedTuple of two such
+    trees and a scalar leaf (the optimizer state's m, v and step)."""
+    body = _render(tree)
+    if namedtuple:
+        body = f"CustomNode(namedtuple[{namedtuple}], [{body}, {body}, *])"
+    return f"PyTreeDef({body})"
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:  # numpy has the dtype only once ml_dtypes is imported
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
+    return t.numpy()
+
+
+def params_to_jax(model) -> dict:
+    """The JAX package's parameter tree (nested dicts and tuples of numpy
+    arrays, layers stacked per pattern position) of a port ``Model``: the
+    inverse of :func:`params_from_jax`.  bf16 leaves need numpy's bfloat16
+    dtype, which importing ``ml_dtypes`` (the JAX package does) registers."""
+    params = dict(model.named_parameters())
+
+    def build(tree):
+        if isinstance(tree, dict):
+            return {k: build(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(build(t) for t in tree)
+        if isinstance(tree, list):
+            return np.stack([_numpy(params[n]) for n in tree])
+        return _numpy(params[tree])
+
+    return build(jax_layout(params, model.cfg))

@@ -4,8 +4,10 @@ They adapt model-layer shapes to kernel layouts (contiguous scan
 operands); attention needs no adapting, since the flash kernel reads the
 model's [B, S, H, hd] layout and GQA itself.  A CPU tensor goes to the
 kernel's plain PyTorch version, a CUDA tensor to the kernel; there is no
-other fallback.  The TPU wrappers' divisibility rules do not apply: the
-CUDA kernels mask ragged edges.
+other fallback.  The kernels have no backward: a CUDA input that requires
+a gradient while grad mode is on raises (training runs plain products, as
+the JAX package's training reaches no Pallas kernel).  The TPU wrappers'
+divisibility rules do not apply: the CUDA kernels mask ragged edges.
 
 ``on_sms(n, first)`` scopes the SMs the model's projections run on: inside
 it ``sm_range()`` is ``(n, first)``, and ``models.layers.dense`` passes it
@@ -58,12 +60,19 @@ def _pick_block(n: int, target: int) -> int:
     return max(b, 1)
 
 
+def _no_backward(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: the hand kernel has no backward; an input requires "
+                           "a gradient (train through models.layers.plain_products)")
+
+
 def pinned_matmul(x: torch.Tensor, w: torch.Tensor, *, n_bands: Optional[int] = None,
                   first_sm: int = 0) -> torch.Tensor:
     """x [M, K] @ w [K, N] on the task's ``n_bands`` SMs from the
     ``first_sm``-th on (all SMs if None)."""
     if x.device.type == "cpu":
         return matmul_ref(x, w)
+    _no_backward("persistent_matmul", x, w)
     return persistent_matmul(x, w, n_bands, first_sm)
 
 
@@ -73,6 +82,7 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     one kernel launch reads the tensors as they are: no copy."""
     if q.device.type == "cpu":
         return mha_flash_ref(q, k, v, scale=scale, window=window)
+    _no_backward("flash_attention", q, k, v)
     return flash_attention_gqa(q, k, v, scale=scale, window=window)
 
 
@@ -83,5 +93,6 @@ def mamba_scan(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
     and d_block choices do not change the result, so none is made here."""
     if abar.device.type == "cpu":
         return selective_scan_ref(abar, bx, c, h0)
+    _no_backward("selective_scan", abar, bx, c, h0)
     return selective_scan(abar.contiguous(), bx.contiguous(), c.contiguous(),
                           None if h0 is None else h0.contiguous())

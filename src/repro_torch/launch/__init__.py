@@ -1,0 +1,2 @@
+"""Launchers of the port: the training driver (``python -m
+repro_torch.launch.train``)."""

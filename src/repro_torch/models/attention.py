@@ -12,9 +12,16 @@ output projection's input.  Decode attention (one query over the cache),
 cross-attention and the encoder's non-causal attention stay plain
 PyTorch products with a float32-logits softmax (``_sdpa_small``), as the
 JAX package computes them outside its causal Pallas kernel.
+
+Training (``attention_train``) reaches no kernel, as JAX's does not: its
+products are plain (``layers.plain_products``), and its causal attention
+is JAX's ``_causal_attention`` in plain PyTorch, which autograd
+differentiates: ``_sdpa_small`` under a causal (or windowed) mask up to
+``_SMALL_SEQ`` positions, the blocked running-max ``_flash_sdpa`` above.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -24,8 +31,8 @@ from repro_torch.kernels import ops
 
 from .layers import _weight, apply_rotary, dense, init_dense, rms_norm, rotary_cos_sin
 
-__all__ = ["KVCache", "Attention", "attention_prefill", "attention_decode", "cross_attention",
-           "encode_kv"]
+__all__ = ["KVCache", "Attention", "attention_train", "attention_prefill", "attention_decode",
+           "cross_attention", "encode_kv"]
 
 
 class KVCache(NamedTuple):
@@ -105,6 +112,83 @@ def _causal_attention(q, k, v, scale, window):
     copy of q, k or v), its plain version on the CPU, at every sequence
     length."""
     return ops.mha_flash(q, k, v, scale=scale, window=window)
+
+
+def _causal_mask(sq: int, sk: int, window: Optional[int], device, q0: int = 0,
+                 k0: int = 0) -> torch.Tensor:
+    """[sq, sk] True = attend, for queries from position q0 and keys from
+    k0: query i sees key j iff j <= i and (no window or j > i - window)."""
+    qi = q0 + torch.arange(sq, device=device)[:, None]
+    kj = k0 + torch.arange(sk, device=device)[None, :]
+    mask = kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    return mask
+
+
+def _flash_sdpa(q, k, v, scale, window: Optional[int], q_block: int = 512,
+                kv_block: int = 1024):
+    """Blocked causal attention with a running max and sum over KV blocks
+    (JAX ``_flash_sdpa``): one [B, H, q_block, kv_block] float32 logits tile
+    at a time.  q: [B, S, H, hd]; k/v: [B, S, Hkv, hd] -> [B, S, H*hd]."""
+    b, s, h, hd = q.shape
+    group = h // k.shape[2]
+    k = _expand_kv(k, group)
+    v = _expand_kv(v, group)
+    outs = []
+    for qs in range(0, s, q_block):
+        qtile = q[:, qs:qs + q_block].float()
+        m_run = q.new_full((b, h, q_block), -math.inf, dtype=torch.float32)
+        l_run = q.new_zeros((b, h, q_block), dtype=torch.float32)
+        acc = q.new_zeros((b, h, q_block, hd), dtype=torch.float32)
+        for ks in range(0, s, kv_block):
+            vtile = v[:, ks:ks + kv_block]
+            logits = torch.einsum("bqhd,bkhd->bhqk", qtile,
+                                  k[:, ks:ks + kv_block].float()) * scale
+            mask = _causal_mask(q_block, kv_block, window, q.device, qs, ks)
+            logits = torch.where(mask, logits, -1e30)
+            m_new = torch.maximum(m_run, logits.amax(dim=-1))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            l_run = l_run * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vtile.dtype).float(), vtile.float())
+            m_run = m_new
+        outs.append((acc / l_run.clamp_min(1e-30)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=2).transpose(1, 2).reshape(b, s, h * hd)
+
+
+_SMALL_SEQ = 1024  # sequences at or below this use materialized-logits attention
+
+
+def _largest_divisor_block(s: int, cap: int = 512) -> int:
+    for blk in range(min(cap, s), 0, -1):
+        if s % blk == 0:
+            return blk
+    return 1
+
+
+def _causal_attention_train(q, k, v, scale, window):
+    """JAX ``_causal_attention`` in plain PyTorch: ``_sdpa_small`` under the
+    causal mask up to ``_SMALL_SEQ`` positions, ``_flash_sdpa`` above it
+    with JAX's block choice."""
+    b, s = q.shape[:2]
+    if s <= _SMALL_SEQ:
+        mask = _causal_mask(s, s, window, q.device)[None].expand(b, s, s)
+        return _sdpa_small(q, k, v, mask, scale)
+    qb = 512 if s % 512 == 0 else _largest_divisor_block(s)
+    kb = 1024 if s % 1024 == 0 else qb
+    return _flash_sdpa(q, k, v, scale, window, q_block=qb, kv_block=kb)
+
+
+def attention_train(params: Attention, cfg, x, window: Optional[int] = None):
+    """Causal self-attention over x [B, S, D] for training: no cache, no
+    kernel (call inside ``layers.plain_products``)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    q, k, v = _qkv(params, cfg, x, positions)
+    out = _causal_attention_train(q, k, v, cfg.head_dim ** -0.5, window)
+    return dense(out, params.wo)
 
 
 def attention_prefill(params: Attention, cfg, x, window: Optional[int] = None):

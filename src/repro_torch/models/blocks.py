@@ -8,7 +8,8 @@ attention, ``{"ssm": MambaState}`` for Mamba, ``{"xl": MLstmState}`` or
 ``{"xl": SLstmState}`` for xLSTM, and beside them ``{"cross_kv":
 KVCache}`` of the encoder's K/V in a decoder with cross-attention;
 prefill and decode write into their tensors in place, never replacing
-them.  The MoE aux loss is dropped in serving.
+them.  The MoE aux loss is dropped in serving; ``block_train`` (no cache,
+no kernel: call it inside ``layers.plain_products``) returns it.
 """
 from __future__ import annotations
 
@@ -24,10 +25,11 @@ from .config import LayerSpec, ModelConfig
 from .layers import MLP, Norm, apply_norm, dense, init_norm, mlp
 from .moe import MoE, moe_ffn
 
-__all__ = ["Block", "init_block", "init_block_cache", "block_prefill",
+__all__ = ["Block", "init_block", "init_block_cache", "block_train", "block_prefill",
            "block_decode", "block_encode"]
 
 _MIXERS = {"attn": attn.Attention, "mamba": mb.Mamba, "mlstm": xl.MLstm, "slstm": xl.SLstm}
+_TRAIN_MIXERS = {"mamba": mb.mamba_train, "mlstm": xl.mlstm_train, "slstm": xl.slstm_train}
 
 
 class Block(nn.Module):
@@ -118,6 +120,21 @@ def block_encode(p: Block, cfg, x):
     x = x + dense(y, p.mixer.wo)
     x, _ = _ffn_apply(p, cfg, p.spec, x)
     return x
+
+
+def block_train(p: Block, cfg, spec: LayerSpec, x, window: Optional[int] = None,
+                enc_out=None):
+    """The block over x [B, S, D] for training, with cross-attention to
+    ``enc_out`` where the block has it -> (x, MoE aux loss or 0.0); JAX
+    ``block_train``."""
+    h = apply_norm(p.norm1, x, cfg.norm)
+    if spec.mixer == "attn":
+        x = x + attn.attention_train(p.mixer, cfg, h, window)
+    else:
+        x = x + _TRAIN_MIXERS[spec.mixer](p.mixer, cfg, h)
+    if p.has_cross and enc_out is not None:
+        x = _cross(p, cfg, x, attn.encode_kv(p.cross, cfg, enc_out))
+    return _ffn_apply(p, cfg, spec, x)
 
 
 def block_prefill(p: Block, cfg, spec: LayerSpec, x, cache,

@@ -2,12 +2,15 @@
 
 Counterpart of ``repro.models.layers``.  Weights keep the JAX layout
 ``[d_in, d_out]`` and are applied as ``x @ w`` through
-``kernels.ops.pinned_matmul``; init functions fill tensors from an explicit
-``torch.Generator``.
+``kernels.ops.pinned_matmul``, or inside :func:`plain_products` (the
+training path) through ``torch.matmul``; init functions fill tensors from an
+explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
@@ -24,6 +27,7 @@ __all__ = [
     "apply_rotary",
     "init_dense",
     "dense",
+    "plain_products",
     "MLP",
     "mlp",
     "init_embedding",
@@ -43,9 +47,28 @@ def init_dense(w: torch.Tensor, gen: torch.Generator,
     w.copy_(noise * scale)
 
 
+_PLAIN = contextvars.ContextVar("plain_products", default=False)
+
+
+@contextlib.contextmanager
+def plain_products() -> Iterator[None]:
+    """Inside the block, :func:`dense` is ``x @ w`` by ``torch.matmul``:
+    the training path's products, which autograd differentiates, as the JAX
+    package's ``x @ w`` outside any Pallas kernel.  The hand kernels have no
+    backward."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
+
+
 def dense(x: torch.Tensor, w: torch.Tensor):
     """x [..., d_in] @ w [d_in, d_out] through the pinned matmul, on the SMs
-    of the enclosing ``ops.on_sms`` (all SMs outside one)."""
+    of the enclosing ``ops.on_sms`` (all SMs outside one); ``x @ w`` inside
+    :func:`plain_products`."""
+    if _PLAIN.get():
+        return x @ w
     lead = x.shape[:-1]
     n_bands, first_sm = ops.sm_range()
     y = ops.pinned_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,

@@ -8,7 +8,9 @@ with the state carried from the chunk before, so at most one chunk's
 ``[B, d_inner, d_state]`` SSM state and a rolling ``[B, d_conv-1,
 d_inner]`` conv buffer in plain PyTorch, as in JAX, but in place: the new
 values are written into the state's own tensors, so a captured decode
-step reads and writes the same addresses at every replay.
+step reads and writes the same addresses at every replay.  Training
+(``mamba_train``) reaches no kernel, as JAX's does not: each chunk's scan is
+JAX's associative scan in plain PyTorch, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.kernels import ops
 from .layers import _weight, dense, init_dense
 
 __all__ = ["MambaState", "Mamba", "init_mamba_state", "ssm_scan_chunked",
-           "mamba_prefill", "mamba_decode"]
+           "mamba_train", "mamba_prefill", "mamba_decode"]
 
 
 class MambaState(NamedTuple):
@@ -99,6 +101,38 @@ def ssm_scan_chunked(p: Mamba, xc, chunk: int = 128):
     return y + xc.float() * p.d_skip, h
 
 
+def _associative_scan(abar, bx):
+    """Inclusive scan along dim 1 of h_t = abar_t * h_{t-1} + bx_t from a
+    zero state (``jax.lax.associative_scan`` of JAX's ``combine``), by
+    doubling strides -> (a_cum, h) with a_cum the running product of abar."""
+    step = 1
+    while step < abar.shape[1]:
+        a_now = abar[:, step:]
+        bx = torch.cat([bx[:, :step], bx[:, :-step] * a_now + bx[:, step:]], dim=1)
+        abar = torch.cat([abar[:, :step], abar[:, :-step] * a_now], dim=1)
+        step *= 2
+    return abar, bx
+
+
+def _ssm_scan_train(p: Mamba, xc, chunk: int = 128):
+    """JAX ``ssm_scan_chunked`` in plain PyTorch: per chunk the associative
+    scan, then the carried state h added through the running product ->
+    (y [B, S, di] f32, h_final)."""
+    b, s, di = xc.shape
+    if s % chunk != 0:
+        chunk = s
+    h = xc.new_zeros((b, di, p.a_log.shape[1]), dtype=torch.float32)
+    ys = []
+    for start in range(0, s, chunk):
+        abar, bx, c_t = _ssm_params(p, xc[:, start:start + chunk])
+        a_cum, h_inner = _associative_scan(abar, bx)
+        h_all = h_inner + a_cum * h[:, None]  # [B, chunk, di, ds]
+        ys.append(torch.einsum("bcds,bcs->bcd", h_all, c_t.float()))
+        h = h_all[:, -1]
+    y = torch.cat(ys, dim=1)
+    return y + xc.float() * p.d_skip, h
+
+
 def _causal_conv(p: Mamba, x):
     """Depthwise causal conv over time, x [B, S, di]; JAX's summation order."""
     dc, s = p.conv_w.shape[0], x.shape[1]
@@ -118,6 +152,16 @@ def mamba_prefill(p: Mamba, cfg, x):
     out = dense(y.to(x.dtype) * F.silu(z), p.out_proj)
     conv_tail = xz[:, -(cfg.mamba_d_conv - 1):, :].contiguous()
     return out, MambaState(conv=conv_tail, ssm=h_final)
+
+
+def mamba_train(p: Mamba, cfg, x):
+    """x [B, S, D] -> [B, S, D] for training: no state, no kernel (call
+    inside ``layers.plain_products``); JAX ``mamba_train``."""
+    di = cfg.d_inner
+    xi = dense(x, p.in_proj)
+    xz, z = xi[..., :di], xi[..., di:]
+    y, _ = _ssm_scan_train(p, _causal_conv(p, xz))
+    return dense(y.to(x.dtype) * F.silu(z), p.out_proj)
 
 
 def init_mamba_state(cfg, batch: int, device, dtype=torch.float32) -> MambaState:

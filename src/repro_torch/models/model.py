@@ -16,24 +16,32 @@ layer.  Parameter names follow the JAX tree: ``embed.w``,
 
 Entry points:
   init_params(seed) / init_caches(batch, max_len) / reset_caches(caches, cache_len)
-  prefill(tokens, caches, extra_embeds, enc_embeds) -> (last_logits, caches)
-  decode_step(token, caches, cache_len)             -> (logits, caches)
+  forward_train(tokens, extra_embeds, enc_embeds)       -> (hidden, aux_loss)
+  loss(tokens, labels, extra_embeds, enc_embeds, chunk) -> scalar loss
+  prefill(tokens, caches, extra_embeds, enc_embeds)     -> (last_logits, caches)
+  decode_step(token, caches, cache_len)                 -> (logits, caches)
 
 Caches are written in place: their tensors keep their addresses from the
 first prefill to the last decode step, so a serving engine can allocate
 them once and capture each step as a CUDA graph over them.  Every
-projection runs on all SMs; the MoE aux loss is dropped in serving;
-training waits for a later slice.
+projection runs on all SMs; the MoE aux loss is dropped in serving.
+
+Training runs no hand kernel, as the JAX package's training reaches no
+Pallas kernel: ``forward_train`` runs inside ``layers.plain_products``
+(``torch.matmul`` products, JAX's attention and scan in plain PyTorch), so
+autograd takes the backward.  Parameters are created without gradients;
+a trainer switches them on for its own model (``requires_grad_(True)``).
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
-from .blocks import (Block, block_decode, block_encode, block_prefill, init_block,
+from .blocks import (Block, block_decode, block_encode, block_prefill, block_train, init_block,
                      init_block_cache)
 from .config import LayerSpec, ModelConfig
-from .layers import Norm, _weight, apply_norm, init_embedding, init_norm
+from .layers import Norm, _weight, apply_norm, init_embedding, init_norm, plain_products
 
 __all__ = ["Model", "resolve_device"]
 
@@ -131,9 +139,12 @@ class Model(nn.Module):
             x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
         return x
 
+    def _head(self) -> torch.Tensor:
+        """The [V, d_model] output embedding (the input one where tied)."""
+        return (self.lm_head if not self.cfg.tie_embeddings else self.embed)["w"]
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        head = self.lm_head if not self.cfg.tie_embeddings else self.embed
-        return x @ head["w"].T
+        return x @ self._head().T
 
     # --------------------------------------------------------------- encoder
 
@@ -145,6 +156,42 @@ class Model(nn.Module):
         for block in self.encoder.layers:
             x = block_encode(block, self.cfg, x)
         return apply_norm(self.encoder.final_norm, x, self.cfg.norm)
+
+    # ----------------------------------------------------------------- train
+
+    def forward_train(self, tokens: torch.Tensor, extra_embeds=None, enc_embeds=None):
+        """Full causal forward of tokens [B, S] (after P patch embeddings
+        where ``extra_embeds`` [B, P, d_model] is given; cross-attending to
+        the encoded ``enc_embeds`` where the model has an encoder) ->
+        (hidden [B, P + S, d_model] after the final norm, MoE aux loss)."""
+        cfg = self.cfg
+        with plain_products():
+            enc_out = self._encode(enc_embeds) if enc_embeds is not None else None
+            x = self._embed(tokens, extra_embeds)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i, block in enumerate(self.layers):
+                x, a = block_train(block, cfg, self._spec(i), x, cfg.sliding_window, enc_out)
+                aux = aux + a
+            return apply_norm(self.final_norm, x, cfg.norm), aux
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor, extra_embeds=None,
+             enc_embeds=None, chunk: int = 256) -> torch.Tensor:
+        """Mean softmax cross-entropy over the text positions, plus the aux
+        loss (JAX ``Model.loss``).  The logits are taken ``chunk`` positions
+        at a time (all S where ``chunk`` does not divide S) and recomputed in
+        backward, so [B, S, V] never exists whole."""
+        x, aux = self.forward_train(tokens, extra_embeds, enc_embeds)
+        if extra_embeds is not None:
+            x = x[:, extra_embeds.shape[1]:]  # loss over text positions only
+        head = self._head()
+        b, s, _ = x.shape
+        if s % chunk != 0:
+            chunk = s
+        labels = labels.long()
+        losses = [torch.utils.checkpoint.checkpoint(
+            _chunk_loss, x[:, i:i + chunk], labels[:, i:i + chunk], head,
+            use_reentrant=False, preserve_rng_state=False) for i in range(0, s, chunk)]
+        return torch.stack(losses).sum() / (b * s) + aux
 
     # --------------------------------------------------------------- serving
 
@@ -175,3 +222,11 @@ class Model(nn.Module):
                                         cache_len, cfg.sliding_window)
         x = apply_norm(self.final_norm, x, cfg.norm)
         return self._logits(x), caches
+
+
+def _chunk_loss(xc: torch.Tensor, lc: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """Sum over a chunk of logsumexp(logits) - logits[label], logits in
+    float32 from ``xc @ head.T`` in the model dtype."""
+    logits = (xc @ head.T).float()
+    gold = logits.gather(-1, lc[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()

@@ -14,7 +14,8 @@ CUDA graph captures the loop once.  Each sLSTM step takes both its gate
 products, ``x_t @ w_gates`` and ``h @ r_gates`` at M = B, as the JAX
 step does.  Decode runs one step and copies the new state
 into the cache's own tensors, so a captured decode step reads and writes
-the same addresses at every replay.
+the same addresses at every replay.  Training (``mlstm_train``,
+``slstm_train``) runs the same step loop under autograd, with no cache.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from torch import nn
 from .layers import _weight, dense, init_dense, rms_norm
 
 __all__ = ["MLstmState", "SLstmState", "MLstm", "SLstm", "init_mlstm_state",
-           "init_slstm_state", "mlstm_decode", "slstm_decode"]
+           "init_slstm_state", "mlstm_train", "slstm_train", "mlstm_decode", "slstm_decode"]
 
 
 class MLstmState(NamedTuple):
@@ -132,6 +133,12 @@ def _mlstm_scan(p: MLstm, cfg, x):
     return _mlstm_out(p, y, z, x.dtype), MLstmState(*carry)
 
 
+def mlstm_train(p: MLstm, cfg, x):
+    """x [B, S, D] -> [B, S, D] for training (call inside
+    ``layers.plain_products``); JAX ``mlstm_train``."""
+    return _mlstm_scan(p, cfg, x)[0]
+
+
 def init_mlstm_state(cfg, batch: int, device) -> MLstmState:
     _, h, hd = _dims(cfg)
     f32 = torch.float32
@@ -211,6 +218,12 @@ def _slstm_scan(p: SLstm, cfg, x):
         hs.append(h)
     y = torch.stack(hs, dim=1).to(x.dtype)
     return dense(y, p.down_proj), SLstmState(*carry)
+
+
+def slstm_train(p: SLstm, cfg, x):
+    """x [B, S, D] -> [B, S, D] for training (call inside
+    ``layers.plain_products``); JAX ``slstm_train``."""
+    return _slstm_scan(p, cfg, x)[0]
 
 
 def init_slstm_state(cfg, batch: int, device) -> SLstmState:

@@ -42,6 +42,7 @@ COPIES = [
     "core/baselines.py",
     "sched/fleet.py",
     "sched/daemon.py",
+    "data/pipeline.py",
 ]
 
 # module -> {"reference": names cut from the reference, "port": names cut
@@ -131,7 +132,7 @@ def test_allowed_differences_are_really_cut(module):
             assert name.split("/")[0] in names, (side, module, name)
 
 
-@pytest.mark.parametrize("package", ["obs", "core", "sched", "runtime"])
+@pytest.mark.parametrize("package", ["obs", "core", "sched", "runtime", "data"])
 def test_port_package_exports_only_reference_names(package):
     port = importlib.import_module(f"repro_torch.{package}")
     ref = importlib.import_module(f"repro.{package}")

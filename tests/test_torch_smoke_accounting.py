@@ -118,3 +118,41 @@ def test_one_block_at_a_time_equals_the_prefill(arch, monkeypatch):
     assert [e["layer"] for e in errs[:cfg.n_enc_layers]] == [f"enc{i}" for i in
                                                              range(cfg.n_enc_layers)]
     assert all(e["kernels"] < 1e-6 and e["plain"] < 1e-6 for e in errs)
+
+
+def test_train_phase_configs(monkeypatch):
+    """The training phase's runs: the JAX example's qwen3-100m in float32
+    for 200 steps, and qwen3-0.6b at full width (the registry's config, bf16)
+    for 20."""
+    from repro_torch.configs import get_config
+
+    smoke = _chip_smoke(monkeypatch)
+    runs = smoke.train_configs()
+    assert list(runs) == ["qwen3-100m", "qwen3-0.6b"]
+    cfg, steps, opt = runs["qwen3-100m"]
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab,
+            cfg.dtype, cfg.tie_embeddings, cfg.qk_norm) == \
+        (12, 768, 12, 4, 2048, 8192, "float32", True, True)
+    assert (steps, opt.lr, opt.warmup_steps, opt.total_steps) == (200, 6e-4, 20, 200)
+    cfg, steps, opt = runs["qwen3-0.6b"]
+    assert cfg == get_config("qwen3-0.6b") and cfg.dtype == "bfloat16"
+    assert (cfg.n_layers, cfg.vocab, steps) == (28, 151936, 20)
+    assert (smoke.TRAIN_BATCH, smoke.TRAIN_SEQ) == (8, 256)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "jamba-v0.1-52b"])
+def test_train_run_calls_no_kernel_wrapper(arch, monkeypatch):
+    """A shrunk training run on the CPU: finite losses and grad norms, and
+    neither a kernel launch nor a call of a kernel wrapper."""
+    from repro_torch.train.optimizer import AdamWConfig
+
+    smoke = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(smoke, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(smoke, "TRAIN_SEQ", 16)
+    matmuls, calls = _counting(monkeypatch)
+    model, opt, rec = smoke.train_run(get_smoke_config(arch), 3, AdamWConfig(warmup_steps=1),
+                                      device="cpu")
+    assert not matmuls and not calls
+    assert rec["launches"] == {"persistent_matmul": 0, "flash_attention": 0, "selective_scan": 0}
+    assert len(rec["losses"]) == len(rec["grad_norms"]) == 3 and int(opt.step) == 3
+    assert all(p.grad is not None for n, p in model.named_parameters() if "np" not in n)
