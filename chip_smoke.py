@@ -117,6 +117,19 @@ Runs from the repository root and imports only ``repro_torch`` (from
    ms/step (CUDA events), the first step's wall and the peak memory, beside
    the card's name and power limit.  No check depends on timing.
 
+7. launch, last: under ``launch.mesh.make_host_mesh()`` (one process,
+   NCCL), the step bundles (``launch.steps.build_bundle``) of full-width
+   qwen3-0.6b (bf16, 28 layers, seed 0) at LAUNCH's shapes: a train step
+   of 4 x 1,024 tokens five times (every loss finite, the first bit-equal
+   to ``train_step``'s on the same weights and batch, no kernel counter
+   moving), the main path's prefill and one decode step against a
+   512-slot cache (logits bit-equal to ``Model.prefill``/``decode_step``'s,
+   launches as ``step_matmuls`` and ``expected_launches`` count them);
+   each step's ms (CUDA events, after warm-up) beside the bound of
+   ``launch.dryrun``'s record of the same step on the host mesh (counted
+   on the meta device).  No check depends on timing; the process group
+   and the bundles are released before the report.
+
 A failure in any phase prints ``chip_smoke.py: FAILED in <phase>: ...``
 with its traceback and exits 1.  Prints each path's kernel totals, a
 ``{"kernels": [...]}`` line (each
@@ -184,6 +197,12 @@ DEPTH = {"phi3.5-moe-42b-a6.6b": 24, "dbrx-132b": 8}
 # of learning, so the 0.6b run is held to finite steps only.
 TRAIN_BATCH, TRAIN_SEQ = 8, 256
 TRAIN = {"qwen3-100m": (200, 6e-4, 20), "qwen3-0.6b": (20, 3e-4, 2)}
+# The launch phase, last: the step bundles of full-width qwen3-0.6b at
+# shapes the card holds (kind -> sequence length, BATCH rows): a train
+# step of 1,024 tokens a row, run LAUNCH_TRAIN_STEPS times; the main
+# path's prefill of PROMPT tokens; one decode step against MAX_CONTEXT.
+LAUNCH = {"train": 1024, "prefill": PROMPT, "decode": MAX_CONTEXT}
+LAUNCH_TRAIN_STEPS = 5
 
 
 class SmokeFailure(Exception):
@@ -1960,6 +1979,154 @@ def phase_train(smi: str) -> dict:
     return out
 
 
+def launch_shapes():
+    """The step bundles' shapes of full-width qwen3-0.6b that the card holds
+    (LAUNCH: the prefill and decode shapes are the main path's BATCH x
+    PROMPT prompt and its decode step against a MAX_CONTEXT cache)."""
+    from repro_torch.models import InputShape
+
+    return [InputShape(f"card_{kind}", seq, BATCH, kind) for kind, seq in LAUNCH.items()]
+
+
+def launch_inputs(bundle, gen) -> None:
+    """Fill a real bundle's inputs in place from ``gen``: random tokens;
+    for decode, random K/V in every cache slot and ``cache_len`` one short
+    of the cache (the new token takes the last slot)."""
+    import torch
+
+    cfg, shape, dev = bundle.cfg, bundle.shape, gen.device
+    if shape.kind == "decode":
+        _, token, caches, cache_len = bundle.args
+        token.copy_(torch.randint(0, cfg.vocab, token.shape, generator=gen, device=dev))
+        for cache in caches:
+            for t in cache["kv"]:
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        cache_len.fill_(shape.seq_len - 1)
+    elif shape.kind == "prefill":
+        tokens = bundle.args[1]
+        tokens.copy_(torch.randint(0, cfg.vocab, tokens.shape, generator=gen, device=dev))
+
+
+def launch_serving(bundle) -> dict:
+    """A real prefill or decode bundle: one step with the kernel counters
+    from 0, held to ``Model.prefill``/``decode_step`` on copies of the same
+    inputs (bit for bit) and its launches to the script's accounting
+    (``step_matmuls``, ``expected_launches``); then its time (CUDA events,
+    after warm-up)."""
+    import torch
+
+    cfg, kind, model = bundle.cfg, bundle.kind, bundle.model
+    launch_inputs(bundle, torch.Generator(device=model.device).manual_seed(SEED))
+    args = list(bundle.args)
+    ref_args = copy.deepcopy(args[1:])
+    counters = zeroed_counters()
+    logits, _ = bundle.step_fn(*args)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    with torch.no_grad():
+        want, _ = (model.prefill(*ref_args) if kind == "prefill"
+                   else model.decode_step(*ref_args))
+    check(torch.equal(logits, want), f"launch {kind}: the bundle's logits differ from "
+          f"Model.{'prefill' if kind == 'prefill' else 'decode_step'}'s")
+    expected = {"persistent_matmul": sum(step_matmuls(cfg, prefill=kind == "prefill").values()),
+                "flash_attention": (expected_launches(cfg)["flash_attention"] // ROUNDS
+                                    if kind == "prefill" else 0),
+                "selective_scan": 0}
+    check(launches == expected, f"launch {kind}: launches {launches}, expected {expected}")
+    return {"ms": eager_ms(lambda: bundle.step_fn(*args), iters=10), "launches": launches}
+
+
+def launch_train(bundle) -> dict:
+    """A real train bundle: LAUNCH_TRAIN_STEPS steps on the bigram
+    pipeline's batches, every loss finite and no hand kernel launched; the
+    first loss bit-equal to ``launch.train.train_step`` on a second model of
+    the same weights and the same batch; ms/step over steps 2.. (CUDA
+    events)."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import Model
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    cfg, shape, dev = bundle.cfg, bundle.shape, bundle.model.device
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=shape.seq_len,
+                                    global_batch=shape.global_batch, seed=SEED))
+    batches = [tuple(torch.as_tensor(np.asarray(a), device=dev) for a in data.batch(i))
+               for i in range(LAUNCH_TRAIN_STEPS)]
+    ref = Model(cfg, device=dev)
+    ref.init_params(SEED)
+    ref.requires_grad_(True)
+    _, want, _ = train_step(ref, AdamWConfig(), init_opt_state(ref), *batches[0])
+    del ref
+    args = list(bundle.args)
+    counters = zeroed_counters()
+    losses = []
+
+    def steps(todo):
+        for tokens, labels in todo:
+            args[2].copy_(tokens)
+            args[3].copy_(labels)
+            _, args[1], loss, _ = bundle.step_fn(*args)
+            losses.append(loss)
+
+    steps(batches[:1])
+    ms = _events_ms(lambda: steps(batches[1:]), LAUNCH_TRAIN_STEPS - 1)
+    losses = torch.stack(losses).tolist()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(all(map(math.isfinite, losses)), f"launch train: a loss is not finite: {losses}")
+    check(not any(launches.values()), f"launch train: a hand kernel launched: {launches}")
+    check(losses[0] == want.item(), f"launch train: first loss {losses[0]!r}, train_step's "
+          f"{want.item()!r}")
+    return {"ms": ms, "losses": losses, "launches": launches}
+
+
+def phase_launch(smi: str, cfg=None, device: str = "cuda") -> dict:
+    """The launch layer on the card (no timing check): under
+    ``make_host_mesh()``, the train, prefill and decode bundles of
+    full-width qwen3-0.6b (bf16, every layer, ``init_params(SEED)``; or
+    ``cfg`` on ``device``) at ``launch_shapes()``, each run on real
+    tensors and held as ``launch_serving``/``launch_train`` say, each timed
+    beside the bound of ``dry_run``'s record of the same (cfg, shape) on
+    the host mesh (chips 1, counted on the meta device).  The group and
+    every bundle are released before it returns."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_bundle
+
+    t0 = time.perf_counter()
+    cfg = cfg or get_config("qwen3-0.6b")
+    out = {}
+    with make_host_mesh(device) as mesh:
+        for shape in launch_shapes():
+            record, (_, trace_s) = dry_run(cfg, shape, mesh, arch=cfg.name,
+                                           shape_name=shape.name, mesh_name="host")
+            bundle = build_bundle(cfg, shape, mesh, device=device)
+            bundle.model.init_params(SEED)
+            rec = launch_train(bundle) if shape.kind == "train" else launch_serving(bundle)
+            del bundle
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            rl = record["roofline"]
+            bound_ms = rl["step_time_lower_bound_s"] * 1e3
+            rec.update(bound_ms=bound_ms, dominant=rl["dominant"], flops=record["flops_total"],
+                       bytes=record["bytes_accessed"], count_s=trace_s, memory=record["memory"])
+            print(f"[launch] {smi}: {shape.kind} ({cfg.name} {cfg.dtype}, {cfg.n_layers} layers, "
+                  f"{shape.global_batch} x {shape.seq_len}): {rec['ms']:.3f} ms/step (CUDA "
+                  f"events after warm-up), bound {bound_ms:.3f} ms "
+                  f"({rl['dominant'].removesuffix('_s')}), {bound_ms / rec['ms']:.1%} of bound, "
+                  f"{record['flops_total']:.4e} FLOP, {record['bytes_accessed']:.4e} bytes "
+                  f"(counted on meta in {trace_s:.1f} s); launches {rec['launches']}"
+                  + (f"; losses {rec['losses']}" if "losses" in rec else "; logits bit-equal"))
+            out[shape.kind] = rec
+    check(not torch.distributed.is_initialized(), "launch: the process group outlived its mesh")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[launch] phase: {out['seconds']:.1f} s")
+    return out
+
+
 def jamba_one_period():
     """jamba-v0.1-52b at full width, cut in depth to one period."""
     from repro_torch.configs import get_config
@@ -2078,6 +2245,8 @@ def main() -> int:
                                     rt=arch == RT_ARCH)
         phase = "train"
         report["train"] = phase_train(smi)
+        phase = "launch"
+        report["launch"] = phase_launch(smi)
         phase = "report"
         paths = {name: report[name] for name in ("qwen3-0.6b", "jamba-v0.1-52b", *ARCHS)}
         report["path_totals"] = {name: path_totals(name, path) for name, path in paths.items()}

@@ -25,9 +25,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch import roofline
+
 from . import _build
 
-__all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_gqa", "kernel_name"]
+__all__ = ["HEAD_DIMS", "causal_pairs", "flash_attention", "flash_attention_gqa",
+           "kernel_name"]
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,13 +79,29 @@ def _launch(q, k, v, out, scale: float, window: Optional[int]) -> None:
     flash_attention.launches += 1
 
 
+def causal_pairs(s: int, window: Optional[int] = None) -> int:
+    """(query, key) pairs the kernel computes over S positions: key j for
+    query i where j <= i (and j > i - window)."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         scale: float, window: Optional[int] = None) -> torch.Tensor:
     """q [B, S, H, hd], k/v [B, S, Hkv, hd] on one CUDA device -> [B, S, H*hd]
     in q.dtype.  Each tensor's last dimension is contiguous with heads
     packed in a row (head stride hd); batch and position strides are
     multiples of 16 bytes and the bases 16-byte aligned.  Nothing is
-    copied: a tensor the kernel does not take raises."""
+    copied: a tensor the kernel does not take raises.  On the meta device
+    (the dry run's): an empty [B, S, H*hd], the kernel's products over the
+    ``causal_pairs`` counted by the active ``roofline.analyze_step``;
+    nothing launches."""
+    if q.device.type == "meta":
+        b, s, h, hd = q.shape
+        out = torch.empty((b, s, h * hd), dtype=q.dtype, device="meta")
+        # QK^T and PV: 2 hd FLOPs each per (query, key) pair and head
+        roofline.record_kernel(4 * b * h * hd * causal_pairs(s, window), (q, k, v), (out,))
+        return out
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_gqa takes float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")

@@ -4,7 +4,8 @@ They adapt model-layer shapes to kernel layouts (contiguous scan
 operands); attention needs no adapting, since the flash kernel reads the
 model's [B, S, H, hd] layout and GQA itself.  A CPU tensor goes to the
 kernel's plain PyTorch version, a CUDA tensor to the kernel; there is no
-other fallback.  The kernels have no backward: a CUDA input that requires
+other fallback.  A meta tensor (the dry run's) goes the kernel's way, and
+the kernel's wrapper returns empty meta outputs and counts its work.  The kernels have no backward: a CUDA input that requires
 a gradient while grad mode is on raises (training runs plain products, as
 the JAX package's training reaches no Pallas kernel).  The TPU wrappers'
 divisibility rules do not apply: the CUDA kernels mask ragged edges.

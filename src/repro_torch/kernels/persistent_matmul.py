@@ -33,6 +33,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import roofline
+
 from . import _build
 
 __all__ = ["TileTrace", "TracePool", "Grid", "tile_shape", "kernel_name", "stage_rows", "split_plan",
@@ -327,7 +329,14 @@ def persistent_matmul(x: torch.Tensor, w: torch.Tensor,
                       n_bands: Optional[int] = None, first_sm: int = 0) -> torch.Tensor:
     """x [M, K] @ w [K, N] on ``n_bands`` of the card's SMs from the
     ``first_sm``-th on (all the rest if None), two interleaved lanes per SM,
-    float32 accumulation, output in x.dtype."""
+    float32 accumulation, output in x.dtype.  On the meta device (the dry
+    run's): an empty [M, N], its 2 M K N FLOPs and bytes counted by the
+    active ``roofline.analyze_step``; nothing launches."""
+    if x.device.type == "meta":
+        (m, k), n = x.shape, w.shape[1]
+        out = torch.empty((m, n), dtype=x.dtype, device="meta")
+        roofline.record_kernel(2 * m * k * n, (x, w), (out,), product=(w, 0))
+        return out
     return _launch(x, w, n_bands, first_sm, traced=False)[0]
 
 

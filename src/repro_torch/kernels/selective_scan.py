@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import roofline
+
 from . import _build
 
 __all__ = ["N_STATES", "selective_scan"]
@@ -37,7 +39,16 @@ def selective_scan(abar: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
                    h0: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """abar/bx [B, S, D, N] f32, c [B, S, N] f32 or bf16, h0 [B, D, N] f32
     (zeros if None), all on one CUDA device -> (y [B, S, D] f32, the state
-    after the last step [B, D, N] f32)."""
+    after the last step [B, D, N] f32).  On the meta device (the dry
+    run's): empty outputs, the kernel's work counted by the active
+    ``roofline.analyze_step``; nothing launches."""
+    if abar.device.type == "meta":
+        b, s, d, n = abar.shape
+        y = torch.empty((b, s, d), dtype=torch.float32, device="meta")
+        h = torch.empty((b, d, n), dtype=torch.float32, device="meta")
+        # per element: h = abar * h + bx (2 FLOPs), y += c * h (2)
+        roofline.record_kernel(4 * b * s * d * n, (abar, bx, c, h0), (y, h))
+        return y, h
     tensors = [abar, bx, c] + ([] if h0 is None else [h0])
     if not (abar.is_cuda and all(t.device == abar.device for t in tensors)):
         raise ValueError("selective_scan needs abar, bx, c and h0 on one CUDA device")

@@ -14,6 +14,7 @@ xlstm.py      mLSTM and sLSTM mixers
 blocks.py     block assembly for every mixer and ffn, and the cross path
 model.py      Model: encoder, prefill (with optional patch or frame embeddings),
               decode, and forward_train / loss (training) over per-layer modules
+sharding.py   partition specs of parameters, caches and batches (JAX's rules)
 """
 from .config import INPUT_SHAPES, InputShape, LayerSpec, ModelConfig
 from .model import Model

@@ -16,6 +16,9 @@ step does.  Decode runs one step and copies the new state
 into the cache's own tensors, so a captured decode step reads and writes
 the same addresses at every replay.  Training (``mlstm_train``,
 ``slstm_train``) runs the same step loop under autograd, with no cache.
+Both loops are ``roofline.step_loop``s: counted by ``roofline.analyze_step``
+they run three steps, the middle one weighted by ``s - 2`` (its output
+stands for every middle step's); everywhere else they run every step.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch import roofline
 
 from .layers import _weight, dense, init_dense, rms_norm
 
@@ -126,10 +131,12 @@ def _mlstm_scan(p: MLstm, cfg, x):
     q, k, v, i_gate, f_gate = _mlstm_qkv(p, xz, h, hd)
     carry = init_mlstm_state(cfg, b, x.device)
     ys = []
-    for t in range(s):
-        carry, y = _mlstm_step(carry, (q[:, t], k[:, t], v[:, t], i_gate[:, t], f_gate[:, t]))
-        ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, s, di)
+    with roofline.step_loop(s) as steps:
+        for t in steps:
+            carry, y = _mlstm_step(carry, (q[:, t], k[:, t], v[:, t], i_gate[:, t],
+                                           f_gate[:, t]))
+            ys.append(y)
+    y = torch.stack(roofline.loop_outputs(ys, s), dim=1).reshape(b, s, di)
     return _mlstm_out(p, y, z, x.dtype), MLstmState(*carry)
 
 
@@ -213,10 +220,11 @@ def _slstm_scan(p: SLstm, cfg, x):
     up = dense(x, p.up_proj)
     carry = init_slstm_state(cfg, b, x.device)
     hs = []
-    for t in range(s):
-        carry, h = _slstm_step(p, carry, up[:, t])
-        hs.append(h)
-    y = torch.stack(hs, dim=1).to(x.dtype)
+    with roofline.step_loop(s) as steps:
+        for t in steps:
+            carry, h = _slstm_step(p, carry, up[:, t])
+            hs.append(h)
+    y = torch.stack(roofline.loop_outputs(hs, s), dim=1).to(x.dtype)
     return dense(y, p.down_proj), SLstmState(*carry)
 
 
