@@ -106,7 +106,19 @@ Runs from the repository root and imports only ``repro_torch`` (from
    check.  RT_ARCH (qwen3-14b) also runs c.-e.; no check of a.-b. depends
    on timing.
 
-6. train, after every serving path (ROADMAP queue 1, item 1): the JAX
+6. top-k, after every greedy serving path (``phase_topk``): full-width
+   qwen3-0.6b served with ``ServeConfig(sampler="topk")``, its weights
+   the greedy path's (seed 0), its steps graph replays that read each
+   job's key: TOPK_ROUNDS rounds of TOPK_JOBS keyed jobs and more keys on
+   one prompt (exact launches; each round's tokens the first's, each
+   job's its eager steps', other keys other tokens), ``sample_topk``
+   against the exact top-k probabilities at the full vocabulary by
+   chi-square (by key and by step), the replayed decode step's device
+   ops beside the greedy path's, then 3d. and 3e. for the top-k service,
+   GN, GW and R^ beside the greedy service's.  It runs after the others so
+   that their phases meet the profiler as before it existed.
+
+7. train, after every serving path (ROADMAP queue 1, item 1): the JAX
    example's qwen3-100m (12 layers, d 768, float32) for 200 AdamW steps
    and full-width qwen3-0.6b (bf16) for 20, 8 x 256 tokens a step of the
    synthetic bigram pipeline from seed 0, through ``launch.train.
@@ -115,9 +127,11 @@ Runs from the repository root and imports only ``repro_torch`` (from
    run's last-10 mean loss below its first-10 mean, and its checkpoint
    loaded into a second model and optimizer state bit-equal at step 200;
    ms/step (CUDA events), the first step's wall and the peak memory, beside
-   the card's name and power limit.  No check depends on timing.
+   the card's name and power limit; each repeat recomputed in backward
+   (``Model.remat``), and the 0.6b run again without, its first loss
+   equal.  No check depends on timing.
 
-7. launch, last: under ``launch.mesh.make_host_mesh()`` (one process,
+8. launch, last: under ``launch.mesh.make_host_mesh()`` (one process,
    NCCL), the step bundles (``launch.steps.build_bundle``) of full-width
    qwen3-0.6b (bf16, 28 layers, seed 0) at LAUNCH's shapes: a train step
    of 4 x 1,024 tokens five times (every loss finite, the first bit-equal
@@ -125,6 +139,7 @@ Runs from the repository root and imports only ``repro_torch`` (from
    moving), the main path's prefill and one decode step against a
    512-slot cache (logits bit-equal to ``Model.prefill``/``decode_step``'s,
    launches as ``step_matmuls`` and ``expected_launches`` count them);
+   the train bundle again with remat off (ms, count, first loss equal);
    each step's ms (CUDA events, after warm-up) beside the bound of
    ``launch.dryrun``'s record of the same step on the host mesh (counted
    on the meta device).  No check depends on timing; the process group
@@ -203,6 +218,13 @@ TRAIN = {"qwen3-100m": (200, 6e-4, 20), "qwen3-0.6b": (20, 3e-4, 2)}
 # path's prefill of PROMPT tokens; one decode step against MAX_CONTEXT.
 LAUNCH = {"train": 1024, "prefill": PROMPT, "decode": MAX_CONTEXT}
 LAUNCH_TRAIN_STEPS = 5
+# The qwen3-0.6b path's top-k service (sample_topk's k 40, T 0.8), after
+# its greedy one: TOPK_ROUNDS rounds of TOPK_JOBS jobs, each job's prompt
+# with its own key; then TOPK_DRAWS seeded draws a row from fixed logits at
+# the full vocabulary, by key and by step, each row's chi-square against
+# the exact top-k probabilities at least TOPK_P_MIN.
+TOPK_ROUNDS, TOPK_JOBS = 2, 4
+TOPK_DRAWS, TOPK_P_MIN = 8192, 1e-3
 
 
 class SmokeFailure(Exception):
@@ -1071,18 +1093,20 @@ def prefill_f32(model, tokens, extra=None, frames=None):
     return x[:, -1:] @ head["w"].float().T, block_errs
 
 
-def graphs_match_eager(engine, prompts, held, replayed, extras=None) -> dict:
+def graphs_match_eager(engine, prompts, held, replayed, extras=None, keys=None) -> dict:
     """The prompts' jobs on SMs ``held`` issued op by op (the engine's eager
     steps), each with its patch or frame embeddings (``extras``, a dict of
-    ``generate``'s keyword arguments per job, where the config has them),
-    against the tokens the graph replays gave (``replayed``): equal.
+    ``generate``'s keyword arguments per job, where the config has them)
+    and its sampling key (``keys``; 0 where None, as ``generate`` without
+    one), against the tokens the graph replays gave (``replayed``): equal.
     Returns the last eager job's prefill ms and decode ms/step (CUDA
     events)."""
     import numpy as np
 
     extras = extras or [{}] * len(prompts)
-    eager = [engine._generate(p, NEW_TOKENS, None, held, eager=True, **e)
-             for p, e in zip(prompts, extras)]
+    keys = keys or [None] * len(prompts)
+    eager = [engine._generate(p, NEW_TOKENS, key, held, eager=True, **e)
+             for p, e, key in zip(prompts, extras, keys)]
     for i, ((out, _), want) in enumerate(zip(eager, replayed)):
         check(np.array_equal(out, want), f"{engine.cfg.name} on SMs {held}: job {i}'s tokens "
               f"from the graph replays differ from the eager path's")
@@ -1529,7 +1553,7 @@ def profiled_round(engine, prompt, gn: int) -> list[float]:
     return steps
 
 
-def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
+def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float, name: str = "") -> dict:
     """Admission on the card through the engine's front door.  The engine
     measures the decode step and whole jobs of the prompt's shape at
     several SM counts (``engine.calibrate``); the deadline is the job's R̂ on a third of the
@@ -1540,13 +1564,14 @@ def phase_rt(cfg, engine, prompt, n_sms: int, decode_s: float) -> dict:
     the fit without GN's points.  Then three rounds through ``generate``,
     registered, each a replay of the steps' graphs on GN: traced (captured
     again with every matmul traced on the GN SMs), plain (the step's time),
-    profiled (each decode step's device-busy time, held to GR̂(GN))."""
+    profiled (each decode step's device-busy time, held to GR̂(GN)).  The
+    service is ``name`` (``chat-<arch>`` when empty)."""
     from repro_torch.runtime import AdmissionController, ServingTaskSpec
     from repro_torch.runtime.task_spec import job_response_ms, kernel_type
     from repro_torch.serving.engine import CALIBRATION_STEPS
 
     t_phase = time.perf_counter()
-    name = f"chat-{cfg.name}"
+    name = name or f"chat-{cfg.name}"
     # the analysis stops at the deadline, so R^ is read under a deadline far past it
     spec = ServingTaskSpec(name=name, arch_id=cfg.name, period_ms=2e9, deadline_ms=1e9,
                            batch=BATCH, seq_len=PROMPT, new_tokens=NEW_TOKENS,
@@ -1678,8 +1703,9 @@ def run_jobs(engine, spec, prompt, gn: int) -> dict:
     """The registered service alone under the port's ``WallClockExecutor``
     for ENGINE_JOBS jobs at its period, each a replay of the steps' graphs
     captured beforehand with every pinned matmul traced
-    (:func:`traced_graphs`); the kernels' counts set to 0 just before and
-    read just after.  The run freezes the collector's view of what lives
+    (:func:`traced_graphs`), each job with its own sampling key drawn from
+    a generator seeded with SEED; the kernels' counts set to 0 just before
+    and read just after.  The run freezes the collector's view of what lives
     before it (the model, the engine, the graphs): a full collection in a
     job then walks only what the jobs made.  Returns the executor's stats
     and trace, the :class:`GraphTrace`, the graphs' replays, each job's R
@@ -1690,7 +1716,8 @@ def run_jobs(engine, spec, prompt, gn: int) -> dict:
     from repro_torch.sched import EventTrace
 
     trace = EventTrace(us_per_unit=1e6, label=spec.name)
-    executor = WallClockExecutor([engine.rt_service(spec, prompt)], trace=trace)
+    service = engine.rt_service(spec, prompt, torch.Generator().manual_seed(SEED))
+    executor = WallClockExecutor([service], trace=trace)
     walls, generate = [], engine.generate
     collector = {"start": 0.0, "ms": 0.0}
 
@@ -1828,6 +1855,144 @@ def phase_engine(engine, ac, spec, prompt, gn: int, per_round: dict) -> dict:
             "sim_worst_ms": worst}
 
 
+def sampler_chi2(logits, draws: int, by: str, chunk: int = 256) -> list[dict]:
+    """``draws`` draws of ``sample_topk`` (its default k and T) from each
+    row of ``logits`` [R, V], on their device: by "key", keys 0..draws-1 at
+    step 0; by "step", key 0 at steps 0..draws-1.  Per row, the draws
+    outside the exact top k (float64) and a chi-square test of the counts
+    against its softmax(v / T), expected counts below 5 pooled:
+    [{"stat", "dof", "p", "outside"}]."""
+    import inspect
+
+    import numpy as np
+    import torch
+    from scipy import stats
+    from repro_torch.serving.engine import sample_topk
+
+    defaults = inspect.signature(sample_topk).parameters
+    k, temp = defaults["k"].default, defaults["temperature"].default
+    rows, vocab = logits.shape
+    got = []
+    for lo in range(0, draws, chunk):
+        n = min(chunk, draws - lo)
+        ids = torch.arange(lo, lo + n, device=logits.device).reshape(n, 1, 1)
+        key, step = (ids, 0) if by == "key" else (0, ids)
+        got.append(sample_topk(key, logits.expand(n, rows, vocab), step=step))
+    got = torch.cat(got).cpu().numpy()
+    v, idx = torch.topk(logits.double(), k, dim=-1)
+    probs = torch.softmax(v / temp, dim=-1).cpu().numpy()
+    out = []
+    for r, (ids_r, p_r) in enumerate(zip(idx.cpu().numpy(), probs)):
+        counts = np.array([(got[:, r] == t).sum() for t in ids_r], np.float64)
+        expected = p_r * draws
+        small = expected < 5
+        if small.any():
+            counts = np.append(counts[~small], counts[small].sum())
+            expected = np.append(expected[~small], expected[small].sum())
+        test = stats.chisquare(counts, expected)
+        out.append({"stat": float(test.statistic), "dof": len(counts) - 1,
+                    "p": float(test.pvalue), "outside": int(draws - counts.sum())})
+    return out
+
+
+def phase_topk(cfg, n_sms: int, greedy: dict) -> dict:
+    """The top-k service (``ServeConfig(sampler="topk")``) of ``cfg`` at full
+    width, its weights the greedy path's (``init_params(SEED)``), every
+    step a CUDA graph replay with the job's key read from its static
+    buffer.  (1) TOPK_ROUNDS rounds of TOPK_JOBS jobs, each prompt with its
+    own key, then job 0's prompt under the other keys, the kernels' counts
+    set to 0 just before and read just after (sampling launches no hand
+    kernel): every round's tokens the first's, every job's equal to its
+    eager steps' with its key, other keys other tokens.  (2) The sampler
+    on the card against the exact probabilities at the full vocabulary
+    (:func:`sampler_chi2`, seeded logits).  (3) The replayed decode step's
+    device ops beside greedy's (``greedy["profile"]``, this run).  (4)
+    Admission and executor jobs as :func:`phase_rt` runs them for greedy,
+    every R <= R^ with no alert; GN, GW and R^ printed beside greedy's
+    (``greedy["rt"]``)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    t0 = time.perf_counter()
+    name = f"chat-{cfg.name}-topk"
+    topk = ServingEngine(cfg, ServeConfig(max_context=max_context(cfg), batch=BATCH,
+                                          sampler="topk"), seed=SEED)
+    capture_s = topk.capture(PROMPT)
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab, (BATCH, PROMPT)).astype(np.int32)
+               for _ in range(TOPK_JOBS)]
+    keys = [int(k) for k in rng.integers(-2 ** 63, 2 ** 63 - 1, TOPK_JOBS, dtype=np.int64)]
+    counters = zeroed_counters()
+    rounds = [[topk.generate(p, NEW_TOKENS, key=key) for p, key in zip(prompts, keys)]
+              for _ in range(TOPK_ROUNDS)]
+    others = [topk.generate(prompts[0], NEW_TOKENS, key=key)[0] for key in keys[1:]]
+    launches = {n: fn.launches for n, fn in counters.items()}
+    decode_s = rounds[-1][-1][1]["decode_s_per_tok"]
+    rounds = [[out for out, _ in r] for r in rounds]
+    jobs = TOPK_ROUNDS * TOPK_JOBS + len(others)
+    want = {n: v * jobs // ROUNDS for n, v in expected_launches(cfg).items()}
+    check(launches == want, f"{name}: launches {launches} in {jobs} jobs, expected {want}")
+    for i, out in enumerate(rounds[0]):
+        check(out.shape == (BATCH, NEW_TOKENS) and bool(((out >= 0) & (out < cfg.vocab)).all()),
+              f"{name}: job {i}'s tokens {out.shape} out of shape or vocabulary")
+    check(all(np.array_equal(a, b) for r in rounds[1:] for a, b in zip(rounds[0], r)),
+          f"{name}: a job's key gave other tokens in a later round")
+    distinct = [rounds[0][0], *others]
+    check(all(not np.array_equal(a, b) for i, a in enumerate(distinct) for b in distinct[i + 1:]),
+          f"{name}: two keys gave one prompt the same tokens")
+    eager = graphs_match_eager(topk, prompts + [prompts[0]] * len(others), (None, 0),
+                               rounds[0] + others, keys=keys + keys[1:])
+    print(f"[topk] {name}: graphs captured in {capture_s:.2f} s; {TOPK_ROUNDS} rounds of "
+          f"{TOPK_JOBS} jobs with their own keys and {len(others)} more keys on job 0's prompt, "
+          f"all graph replays: launches {launches}; each round's tokens the first's, each job's "
+          f"its eager steps', {len(distinct)} keys on one prompt {len(distinct)} token sets")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    logits = torch.randn((BATCH, cfg.vocab), generator=gen, device="cuda") * 2.0
+    chi2 = {by: sampler_chi2(logits, TOPK_DRAWS, by) for by in ("key", "step")}
+    for by, rows in chi2.items():
+        print(f"[topk] {name}: sample_topk on the card, {TOPK_DRAWS} draws a row by {by} from "
+              f"seeded N(0, 2^2) logits [{BATCH}, {cfg.vocab}] against the exact top-k "
+              f"softmax: chi-square " + ", ".join(
+                  f"row {r} {c['stat']:.2f} on {c['dof']} dof, p {c['p']:.4f}"
+                  for r, c in enumerate(rows)) + f"; outside the top k: "
+              f"{sum(c['outside'] for c in rows)}")
+        check(all(c["outside"] == 0 for c in rows), f"{name}: a draw outside the top k")
+        check(all(c["p"] >= TOPK_P_MIN for c in rows),
+              f"{name}: chi-square by {by}: p {[c['p'] for c in rows]} < {TOPK_P_MIN}")
+
+    steps = topk.steps(PROMPT)
+    topk._write_inputs(prompts[0], key=keys[0])
+    steps.prefill()
+    steps.decode()
+    prof = _profile(steps.decode, 8)
+    greedy_ops = greedy["profile"]["decode_graph"]
+    if prof["idle_share"] is not None:
+        print(f"[topk] {name}: replayed decode step {prof['device_ops_per_step']:.0f} device "
+              f"ops, busy {prof['device_ms_per_step']:.3f} ms, idle share "
+              f"{prof['idle_share']:.3f}; greedy's this run "
+              f"{greedy_ops['device_ops_per_step']:.0f} ops, busy "
+              f"{greedy_ops['device_ms_per_step']:.3f} ms (torch.profiler)")
+
+    rt = phase_rt(cfg, topk, prompts[0], n_sms, decode_s, name=name)
+    g = greedy["rt"]
+    print(f"[topk] {name} beside chat-{cfg.name} (greedy), this run: GN {rt['gn']} vs {g['gn']}, "
+          f"GW {rt['gpu_segment']['work_hi']:.4f} vs {g['gpu_segment']['work_hi']:.4f} ms, "
+          f"GR^(GN) {rt['gr_hi_ms']:.4f} vs {g['gr_hi_ms']:.4f} ms, job R^ "
+          f"{rt['engine']['r_hat_ms']:.3f} vs {g['engine']['r_hat_ms']:.3f} ms, executor R "
+          f"{min(rt['engine']['responses_ms']):.3f}-{max(rt['engine']['responses_ms']):.3f} vs "
+          f"{min(g['engine']['responses_ms']):.3f}-{max(g['engine']['responses_ms']):.3f} ms")
+    topk.release_graphs()
+    del topk
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[topk] {name}: phase {seconds:.1f} s")
+    return {"launches": launches, "chi2": chi2, "decode_profile": prof, "eager": eager,
+            "rt": rt, "capture_s": capture_s, "seconds": seconds}
+
+
 def run_path(cfg, kernels_phase, n_sms, rt: bool = True) -> dict:
     """One model's kernels and main path, and with ``rt`` its profile and
     RT phases; frees the engine before it returns."""
@@ -1863,8 +2028,9 @@ def train_configs() -> dict:
             for name, (steps, lr, warmup) in TRAIN.items()}
 
 
-def train_run(cfg, steps: int, opt_cfg, device="cuda"):
-    """``steps`` AdamW steps of ``cfg`` from SEED on the bigram pipeline ->
+def train_run(cfg, steps: int, opt_cfg, device="cuda", remat: bool = True):
+    """``steps`` AdamW steps of ``cfg`` from SEED on the bigram pipeline,
+    each repeat recomputed in backward where ``remat`` (``Model.remat``) ->
     (model, opt_state, record): every step's loss and grad norm (all
     finite) and the hand kernels' launches during training (all 0); on the
     card also the first step's wall, ms/step over the rest (CUDA events)
@@ -1884,6 +2050,7 @@ def train_run(cfg, steps: int, opt_cfg, device="cuda"):
     model = Model(cfg, device=device)
     model.init_params(SEED)
     model.requires_grad_(True)
+    model.remat = remat
     opt_state = init_opt_state(model)
     data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH, seed=SEED))
@@ -1947,8 +2114,11 @@ def checkpoint_round_trip(model, opt_state, steps: int) -> dict:
 
 
 def phase_train(smi: str) -> dict:
-    """Each TRAIN run on the card after the serving paths (no timing check);
-    both models freed before it returns."""
+    """Each TRAIN run on the card after the serving paths (no timing check),
+    with remat (the model's default); full-width qwen3-0.6b's run again
+    without, its first loss bit-equal (remat changes only the backward)
+    and its ms/step and peak beside.  Every model freed before it
+    returns."""
     import torch
 
     t0 = time.perf_counter()
@@ -1974,6 +2144,19 @@ def phase_train(smi: str) -> dict:
         del model, opt_state
         gc.collect()
         torch.cuda.empty_cache()
+        if name == "qwen3-0.6b":
+            out[f"{name} without remat"] = rec_off = train_run(cfg, steps, opt_cfg,
+                                                               remat=False)[2]
+            gc.collect()
+            torch.cuda.empty_cache()
+            diff = max(abs(a - b) for a, b in zip(rec["losses"], rec_off["losses"]))
+            check(rec_off["losses"][0] == rec["losses"][0], f"{name}: first loss "
+                  f"{rec_off['losses'][0]!r} without remat, {rec['losses'][0]!r} with")
+            print(f"[train] {smi}: {name} with remat (each repeat recomputed in backward) "
+                  f"{rec['ms_per_step']:.3f} ms/step, peak {rec['peak_gb']:.2f} GB; without "
+                  f"{rec_off['ms_per_step']:.3f} ms/step, peak {rec_off['peak_gb']:.2f} GB (same "
+                  f"process, CUDA events); first loss equal, largest loss difference over "
+                  f"{steps} steps {diff:.3g}")
     out["seconds"] = time.perf_counter() - t0
     print(f"[train] phase: {out['seconds']:.1f} s")
     return out
@@ -2080,6 +2263,30 @@ def launch_train(bundle) -> dict:
     return {"ms": ms, "losses": losses, "launches": launches}
 
 
+def launch_train_without_remat(cfg, shape, mesh, device: str) -> dict:
+    """The train bundle with ``model.remat`` off: its count on the meta
+    device (FLOPs, bytes, the peak of the step's own storages and the
+    bound, chips 1) and its run on ``device`` (``launch_train``)."""
+    from repro_torch.launch.steps import build_bundle
+    from repro_torch.roofline import analyze_step, roofline_report
+
+    meta = build_bundle(cfg, shape, mesh)
+    meta.model.remat = False
+    stats, _ = analyze_step(meta.step_fn, *meta.args, params=meta.args[0])
+    del meta
+    bound_s = roofline_report({"chips": 1, "flops_total": stats.flops,
+                               "bytes_accessed": stats.bytes_accessed, "collective_bytes": 0.0},
+                              cfg, shape)["step_time_lower_bound_s"]
+    bundle = build_bundle(cfg, shape, mesh, device=device)
+    bundle.model.init_params(SEED)
+    bundle.model.remat = False
+    rec = launch_train(bundle)
+    del bundle
+    gc.collect()
+    return {**rec, "flops": stats.flops, "bytes": stats.bytes_accessed,
+            "temp_bytes": stats.temp_peak_bytes, "bound_ms": bound_s * 1e3}
+
+
 def phase_launch(smi: str, cfg=None, device: str = "cuda") -> dict:
     """The launch layer on the card (no timing check): under
     ``make_host_mesh()``, the train, prefill and decode bundles of
@@ -2120,6 +2327,17 @@ def phase_launch(smi: str, cfg=None, device: str = "cuda") -> dict:
                   f"{record['flops_total']:.4e} FLOP, {record['bytes_accessed']:.4e} bytes "
                   f"(counted on meta in {trace_s:.1f} s); launches {rec['launches']}"
                   + (f"; losses {rec['losses']}" if "losses" in rec else "; logits bit-equal"))
+            if shape.kind == "train":
+                off = rec["without_remat"] = launch_train_without_remat(cfg, shape, mesh, device)
+                check(off["losses"][0] == rec["losses"][0], f"launch train: first loss "
+                      f"{off['losses'][0]!r} without remat, {rec['losses'][0]!r} with")
+                print(f"[launch] {smi}: train with remat (above) against without: "
+                      f"{rec['ms']:.3f} vs {off['ms']:.3f} ms/step, bound {bound_ms:.3f} vs "
+                      f"{off['bound_ms']:.3f} ms, {record['flops_total']:.4e} vs "
+                      f"{off['flops']:.4e} FLOP, {record['bytes_accessed']:.4e} vs "
+                      f"{off['bytes']:.4e} bytes, the step's own peak "
+                      f"{record['memory']['temp_bytes'] / 1e9:.3f} vs "
+                      f"{off['temp_bytes'] / 1e9:.3f} GB (counted on meta)")
             out[shape.kind] = rec
     check(not torch.distributed.is_initialized(), "launch: the process group outlived its mesh")
     out["seconds"] = time.perf_counter() - t0
@@ -2243,6 +2461,8 @@ def main() -> int:
             phase = arch
             report[arch] = run_path(arch_path_config(arch), phase_kernels_arch, sms,
                                     rt=arch == RT_ARCH)
+        phase = "qwen3-0.6b top-k"
+        report["topk"] = phase_topk(get_config("qwen3-0.6b"), sms, report["qwen3-0.6b"])
         phase = "train"
         report["train"] = phase_train(smi)
         phase = "launch"

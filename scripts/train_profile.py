@@ -5,9 +5,11 @@ qwen3-0.6b in bf16; 8 x 256 tokens a step, seed 0).
 
     python3 scripts/train_profile.py [--steps 10]
 
-Per run, after 3 warm-up steps: ms/step over ``--steps`` steps (CUDA
-events) and the host's time to issue them (no synchronisation inside: a
-host time near the device time means the step waits on the host); then,
+Each run twice: with ``Model.remat`` (each repeat recomputed in backward,
+the default), then without.  Per run, after 3 warm-up steps: ms/step over
+``--steps`` steps (CUDA events) and the host's time to issue them (no
+synchronisation inside: a host time near the device time means the step
+waits on the host); then,
 synchronised part by part, the loss and backward and the AdamW update,
 each on the device (CUDA events) and on the host (issue time); the
 multi-tensor AdamW (``train.optimizer.adamw_update``) against a per-leaf
@@ -69,7 +71,7 @@ def events_ms(fn, n: int) -> tuple[float, float]:
     return start.elapsed_time(end) / n, host
 
 
-def profile_run(name, cfg, opt_cfg, steps: int, smi: str) -> dict:
+def profile_run(name, cfg, opt_cfg, steps: int, smi: str, remat: bool = True) -> dict:
     import numpy as np
     import torch
 
@@ -82,6 +84,7 @@ def profile_run(name, cfg, opt_cfg, steps: int, smi: str) -> dict:
     model = Model(cfg, device="cuda")
     model.init_params(smoke.SEED)
     model.requires_grad_(True)
+    model.remat = remat
     state = {"opt": init_opt_state(model)}
     data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=smoke.TRAIN_SEQ,
                                     global_batch=smoke.TRAIN_BATCH, seed=smoke.SEED))
@@ -149,8 +152,11 @@ def main(argv=None) -> int:
     import chip_smoke as smoke
 
     smi = smoke.phase_device()["nvidia_smi"]
-    report = {name: profile_run(name, cfg, opt_cfg, args.steps, smi)
-              for name, (cfg, _, opt_cfg) in smoke.train_configs().items()}
+    report = {f"{name}{'' if remat else ' without remat'}":
+              profile_run(f"{name}{'' if remat else ' without remat'}", cfg, opt_cfg,
+                          args.steps, smi, remat)
+              for name, (cfg, _, opt_cfg) in smoke.train_configs().items()
+              for remat in (True, False)}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "train_profile.json").write_text(json.dumps(report, indent=1, default=str))

@@ -31,8 +31,14 @@ Pallas kernel: ``forward_train`` runs inside ``layers.plain_products``
 (``torch.matmul`` products, JAX's attention and scan in plain PyTorch), so
 autograd takes the backward.  Parameters are created without gradients;
 a trainer switches them on for its own model (``requires_grad_(True)``).
+With ``remat`` (the default, as JAX's ``Model.remat``) each repeat's
+layers run under ``torch.utils.checkpoint``: backward recomputes them, so
+one repeat's activations live at a time, as JAX's ``jax.checkpoint`` of
+its scan body keeps them.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.utils.checkpoint
@@ -72,6 +78,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         self.cfg = cfg
+        self.remat = True  # launch/steps may override
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         d, dt, dev = cfg.d_model, self.dtype, self.device
@@ -163,16 +170,33 @@ class Model(nn.Module):
         """Full causal forward of tokens [B, S] (after P patch embeddings
         where ``extra_embeds`` [B, P, d_model] is given; cross-attending to
         the encoded ``enc_embeds`` where the model has an encoder) ->
-        (hidden [B, P + S, d_model] after the final norm, MoE aux loss)."""
+        (hidden [B, P + S, d_model] after the final norm, MoE aux loss).
+        With ``remat`` each repeat is checkpointed (the encoder is not, as
+        JAX's encoder scan is not)."""
         cfg = self.cfg
         with plain_products():
             enc_out = self._encode(enc_embeds) if enc_embeds is not None else None
             x = self._embed(tokens, extra_embeds)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
-            for i, block in enumerate(self.layers):
-                x, a = block_train(block, cfg, self._spec(i), x, cfg.sliding_window, enc_out)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        body = (functools.partial(torch.utils.checkpoint.checkpoint, self._repeat_train,
+                                  use_reentrant=False, preserve_rng_state=False)
+                if self.remat else self._repeat_train)
+        for r in range(cfg.n_repeats):
+            x, aux = body(r, x, aux, enc_out)
+        return apply_norm(self.final_norm, x, cfg.norm), aux
+
+    def _repeat_train(self, r: int, x: torch.Tensor, aux: torch.Tensor, enc_out):
+        """Repeat ``r``'s layers over x, the aux loss carried through (JAX's
+        ``repeat_step``).  It enters ``plain_products`` itself: a recompute
+        runs in backward, outside ``forward_train``'s block (on the card on
+        autograd's device thread), and must not reach a hand kernel."""
+        cfg, period = self.cfg, len(self.cfg.pattern)
+        with plain_products():
+            for pos, spec in enumerate(cfg.pattern):
+                x, a = block_train(self.layers[r * period + pos], cfg, spec, x,
+                                   cfg.sliding_window, enc_out)
                 aux = aux + a
-            return apply_norm(self.final_norm, x, cfg.norm), aux
+        return x, aux
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor, extra_embeds=None,
              enc_embeds=None, chunk: int = 256) -> torch.Tensor:

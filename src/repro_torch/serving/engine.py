@@ -7,7 +7,10 @@ inputs and outputs are static: allocated once per engine (its batch and
 (internvl2-2b) and an encoder-decoder's frame embeddings (whisper-base)
 among the step's inputs.  Each job resets them, then runs
 a prefill step and a decode step per token; the sampled tokens collect in a
-device buffer, copied to the host once a job.  On the card each step is a
+device buffer, copied to the host once a job.  A job's sampling key is a
+static input too (``_Static.key``), and top-k sampling draws each token
+from a hash of (key, step, row, token) on the device, so a replayed step
+samples this job's tokens as the eager step does.  On the card each step is a
 CUDA graph replay (:class:`~repro_torch.serving.graphs.StepGraph`, as the
 JAX engine ``jax.jit``s its steps), captured per prompt length and per
 (n_bands, first SM) of the pinned matmuls, which the capture bakes into
@@ -24,6 +27,7 @@ hands that run to ``BoundMonitor``.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 import weakref
 from typing import Callable, Optional
@@ -42,7 +46,8 @@ from repro_torch.sched import TraceEvent
 from .graphs import StepGraph
 
 __all__ = ["ServeConfig", "ServingEngine", "Steps", "calibration_sms", "device_activities",
-           "device_busy_ms", "executor_events", "profiled_ms", "sample_greedy", "sample_topk"]
+           "device_busy_ms", "executor_events", "profiled_ms", "sample_greedy", "sample_topk",
+           "uniform_bits"]
 
 CALIBRATION_STEPS = 6   # decode steps profiled at each SM count
 CALIBRATION_PREFILLS = 3  # prefills timed at each SM count, after one untimed
@@ -64,13 +69,52 @@ def sample_greedy(generator: Optional[torch.Generator], logits: torch.Tensor):
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def sample_topk(generator: Optional[torch.Generator], logits: torch.Tensor,
-                k: int = 40, temperature: float = 0.8):
-    """Sample among the k largest logits at ``temperature``; logits [..., V]."""
+_M32 = 0xFFFFFFFF
+# lowbias32's multipliers (C. Wellons, "Hash function prospector"), the
+# second less 2**32: each is below 2**31 in magnitude, so a product with a
+# 32-bit word stays inside int64 and its low 32 bits are the residue
+_MIX = (0x7FEB352D, 0x846CA68B - (1 << 32))
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32, a bijection of 32-bit words, on int64 tensors holding them."""
+    x = x ^ (x >> 16)
+    x = (x * _MIX[0]) & _M32
+    x = x ^ (x >> 15)
+    x = (x * _MIX[1]) & _M32
+    return x ^ (x >> 16)
+
+
+def uniform_bits(key, step, row, token) -> torch.Tensor:
+    """A uniform draw in (0, 1), float64, that is a pure function of int64
+    (key, step, row, token) (tensors or ints, broadcast): the 32-bit words
+    key low, key high, step, row and token folded in turn through
+    :func:`_mix32`, then (h + 1/2) / 2**32.  Counter-based: no state, the
+    same on the CPU and the card."""
+    h = _mix32((key & _M32) ^ 0x9E3779B9)
+    for word in ((key >> 32) & _M32, step & _M32, row & _M32, token & _M32):
+        h = _mix32(h ^ word)
+    return (h.double() + 0.5) * 2.0 ** -32
+
+
+def sample_topk(key, logits: torch.Tensor, k: int = 40, temperature: float = 0.8,
+                step=0) -> torch.Tensor:
+    """Sample among the k largest logits at ``temperature``; logits [..., V].
+
+    Gumbel-max over the top k, as ``jax.random.categorical`` samples:
+    argmax of v / T + g, g = -log(-log(u)), u from :func:`uniform_bits` of
+    (``key``, ``step``, row, token id), row the index over the leading dims.
+    ``key`` and ``step`` are ints or int64 tensors broadcast against
+    [..., 1] (a batch of keys draws one key per row).  Each candidate's
+    noise follows its token id, not its rank, so the draw does not depend
+    on the order ``torch.topk`` gives tied logits.  Device ops only: a CUDA
+    graph replays it with the key and step its buffers hold."""
     v, idx = torch.topk(logits.float(), k, dim=-1)
-    probs = torch.softmax(v / temperature, dim=-1)
-    flat = probs.reshape(-1, k)
-    choice = torch.multinomial(flat, 1, generator=generator).reshape(*v.shape[:-1], 1)
+    lead, dev = v.shape[:-1], v.device
+    key, step = (torch.as_tensor(t, dtype=torch.int64, device=dev) for t in (key, step))
+    rows = torch.arange(math.prod(lead), device=dev).reshape(*lead, 1)
+    g = -torch.log(-torch.log(uniform_bits(key, step, rows, idx)))
+    choice = torch.argmax(v.double() / temperature + g, dim=-1, keepdim=True)
     return torch.gather(idx, -1, choice)[..., 0].to(torch.int32)
 
 
@@ -78,7 +122,7 @@ def sample_topk(generator: Optional[torch.Generator], logits: torch.Tensor,
 class ServeConfig:
     max_context: int = 512
     batch: int = 4
-    sampler: str = "greedy"  # greedy | topk (top-k on the CPU only)
+    sampler: str = "greedy"  # greedy | topk
 
 
 class _StepTimer:
@@ -119,9 +163,10 @@ class _Static:
     precede it (``patches``, [B, n_patches, d_model] in the model dtype;
     None where the config has none), the encoder's frame embeddings
     (``frames``, [B, enc_ctx, d_model] in the model dtype; None but in an
-    encoder-decoder), the last sampled token, the decode step's index and
-    the tokens it has emitted.  Plain tensors, not inference tensors, so
-    they can be written outside inference mode."""
+    encoder-decoder), the job's sampling key (``key``, int64 [1]), the
+    last sampled token, the decode step's index and the tokens it has
+    emitted.  Plain tensors, not inference tensors, so they can be written
+    outside inference mode."""
 
     @torch.inference_mode(False)
     def __init__(self, model: Model, batch: int, max_context: int):
@@ -132,6 +177,7 @@ class _Static:
         self.frames = (torch.zeros((batch, cfg.enc_ctx, cfg.d_model), dtype=model.dtype,
                                    device=dev) if cfg.is_encoder_decoder else None)
         self.cache_len = torch.zeros(batch, dtype=torch.int32, device=dev)
+        self.key = torch.zeros(1, dtype=torch.int64, device=dev)
         self.tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
         self.out = torch.zeros((batch, max_context), dtype=torch.int32, device=dev)
@@ -192,7 +238,6 @@ class ServingEngine:
         else:
             self.model.load_state_dict(params)
         self.device = self.model.device
-        self._sample = sample_greedy if serve.sampler == "greedy" else sample_topk
         self._static: Optional[_Static] = None
         self._graphs: dict[tuple, tuple[StepGraph, StepGraph]] = {}
         self._pool = None
@@ -332,7 +377,8 @@ class ServingEngine:
         every ``spec.period_ms`` with deadline ``spec.deadline_ms``, each job
         one ``generate(prompts, spec.new_tokens)`` of the spec's shape,
         which reads :attr:`sm_range` as it starts and replays the graphs
-        captured there at admission or at the last change of its SMs."""
+        captured there at admission or at the last change of its SMs; with
+        a ``generator``, each job draws its own sampling key from it."""
         if self._rt is None or self._rt[1] != spec.name:
             raise ValueError(f"{spec.name}: not admitted on this engine")
         if prompts.shape != (spec.batch, spec.seq_len):
@@ -376,6 +422,7 @@ class ServingEngine:
         generator: Optional[torch.Generator] = None,
         extra_embeds=None,             # [B, n_patches, d_model], default zeros
         enc_embeds=None,               # [B, enc_ctx, d_model], default zeros
+        key: Optional[int] = None,
     ) -> tuple[np.ndarray, dict]:
         """One job on the SMs the service holds (all, when not admitted).
         Not admitted, its first job of a prompt length captures the steps;
@@ -383,8 +430,16 @@ class ServingEngine:
         A config with ``n_patches`` prepends ``extra_embeds`` (zeros when
         None, as the JAX engine does) to every row's prompt; an
         encoder-decoder encodes ``enc_embeds`` (zeros when None, as the JAX
-        engine does) in the prefill, and its decoder attends to them."""
-        return self._generate(prompts, max_new_tokens, generator, self.sm_range or (None, 0),
+        engine does) in the prefill, and its decoder attends to them.
+        Top-k sampling draws with the job's ``key`` (an int), or with a key
+        the host draws from ``generator`` before the job starts, or with 0
+        when neither is given (the JAX engine's default ``PRNGKey(0)``)."""
+        if key is None:
+            key = 0 if generator is None else int(torch.randint(
+                -2 ** 63, 2 ** 63 - 1, (), dtype=torch.int64, generator=generator))
+        elif generator is not None:
+            raise ValueError("give a job's key or a generator to draw it from, not both")
+        return self._generate(prompts, max_new_tokens, key, self.sm_range or (None, 0),
                               lazy=self._rt is None, extra_embeds=extra_embeds,
                               enc_embeds=enc_embeds)
 
@@ -400,29 +455,38 @@ class ServingEngine:
             self._static = _Static(self.model, self.serve.batch, self.serve.max_context)
         return self._static
 
-    def _prefill_step(self, seq_len: int, generator) -> None:
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """The next token of each row from the last position's logits
+        [B, V]: greedy, or top-k with the job's key at the step's index."""
+        if self.serve.sampler == "greedy":
+            return sample_greedy(None, logits)
+        st = self._static
+        return sample_topk(st.key, logits, step=st.step)
+
+    def _prefill_step(self, seq_len: int) -> None:
         """Reset the job's state, fill the caches from the patch embeddings
         (if any) and the prompt, and the cross K/V from the frame embeddings
-        (if any), and sample the first token."""
+        (if any), and sample the first token (at step 0)."""
         st, model = self._static, self.model
         model.reset_caches(st.caches, st.cache_len)
         logits, _ = model.prefill(st.prompts[seq_len], st.caches, st.patches, st.frames)
         st.cache_len.add_(seq_len + self.cfg.n_patches)
         st.step.zero_()
-        st.tok.copy_(self._sample(generator, logits[:, -1, :])[:, None])
+        st.tok.copy_(self._sample(logits[:, -1, :])[:, None])
 
-    def _decode_step(self, generator) -> None:
+    def _decode_step(self) -> None:
         """Emit the last token, run it through the model (writing its K/V
-        at ``cache_len``) and sample the next."""
+        at ``cache_len``) and sample the next (at the next step, as the JAX
+        engine splits its key once a decode step)."""
         st = self._static
         st.out.index_copy_(1, st.step, st.tok)
         logits, _ = self.model.decode_step(st.tok, st.caches, st.cache_len)
         st.cache_len.add_(1)
         st.step.add_(1)
-        st.tok.copy_(self._sample(generator, logits[:, -1, :])[:, None])
+        st.tok.copy_(self._sample(logits[:, -1, :])[:, None])
 
     def steps(self, seq_len: int, held: tuple[Optional[int], int] = (None, 0),
-              generator: Optional[torch.Generator] = None, eager: bool = False) -> Steps:
+              eager: bool = False) -> Steps:
         """The prefill and decode steps of [batch, seq_len] prompts with the
         pinned matmuls on ``held`` = (n_bands, first SM): on the card the
         replays of the graphs :meth:`capture` made (none made: it raises),
@@ -431,11 +495,11 @@ class ServingEngine:
 
         def prefill():
             with torch.inference_mode(), ops.on_sms(*held):
-                self._prefill_step(seq_len, generator)
+                self._prefill_step(seq_len)
 
         def decode():
             with torch.inference_mode(), ops.on_sms(*held):
-                self._decode_step(generator)
+                self._decode_step()
 
         if eager or not self.graphs:
             return Steps(prefill, decode)
@@ -446,13 +510,9 @@ class ServingEngine:
 
     def capture(self, seq_len: int, held: tuple[Optional[int], int] = (None, 0)) -> float:
         """Capture the steps of ``seq_len`` prompts on ``held`` if they are
-        not captured yet; the seconds it took (0 if they were).  Top-k
-        sampling is refused: a graph's draws are not checked on the card."""
+        not captured yet; the seconds it took (0 if they were)."""
         t0 = time.perf_counter()
         if self.graphs and (seq_len, held) not in self._graphs:
-            if self.serve.sampler != "greedy":
-                raise ValueError(f"{self.serve.sampler} sampling inside a CUDA graph is not "
-                                 f"checked on the card: serve greedy there")
             eager = self.steps(seq_len, held, eager=True)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
@@ -472,12 +532,13 @@ class ServingEngine:
             # a pool whose graphs are all gone takes no further capture
             self._pool = None
 
-    def _write_inputs(self, prompts, extra_embeds=None, enc_embeds=None) -> None:
+    def _write_inputs(self, prompts, extra_embeds=None, enc_embeds=None, key: int = 0) -> None:
         """Copy a job's prompts, its patch embeddings and its frame
-        embeddings (each zeros when None) into the static buffers its steps
-        read."""
+        embeddings (each zeros when None) and its sampling key into the
+        static buffers its steps read."""
         st = self._static
         st.prompts[prompts.shape[1]].copy_(torch.as_tensor(prompts, dtype=torch.int32))
+        st.key.fill_(key)
         _write_embeds(st.patches, extra_embeds, "extra_embeds", "n_patches",
                       f"{self.cfg.name} takes no patch embeddings (n_patches 0)")
         _write_embeds(st.frames, enc_embeds, "enc_embeds", "enc_ctx",
@@ -490,7 +551,7 @@ class ServingEngine:
                              f"{self.serve.max_context})")
 
     @torch.inference_mode()
-    def _generate(self, prompts, max_new_tokens, generator, held, lazy: bool = False,
+    def _generate(self, prompts, max_new_tokens, key: Optional[int], held, lazy: bool = False,
                   eager: bool = False, spans: Optional[dict] = None,
                   extra_embeds=None, enc_embeds=None) -> tuple[np.ndarray, dict]:
         """One job, its pinned matmuls on ``held`` = (n_bands, first SM);
@@ -498,17 +559,18 @@ class ServingEngine:
         issues them op by op (the card's reference for the graphs).  A
         ``spans`` dict given receives the prefill's span (``prefill_s``)
         and each decode step's (``decode_s``), in seconds.  The patch and
-        frame embeddings are written into their static buffers before the
-        prefill, as the prompt is, so a replayed graph reads this job's."""
+        frame embeddings and the sampling ``key`` (0 when None) are written
+        into their static buffers before the prefill, as the prompt is, so
+        a replayed graph reads this job's."""
         b, s = prompts.shape
         if b != self.serve.batch:
             raise ValueError(f"batch {b} != ServeConfig.batch {self.serve.batch}")
         self._check_context(s, max_new_tokens, "new tokens")
         if lazy and not eager:
             self.capture(s, held)
-        steps = self.steps(s, held, generator, eager)
+        steps = self.steps(s, held, eager)
         st = self._static
-        self._write_inputs(prompts, extra_embeds, enc_embeds)
+        self._write_inputs(prompts, extra_embeds, enc_embeds, key or 0)
         prefill_t, decode_t = _StepTimer(self.device), _StepTimer(self.device)
         prefill_t.start()
         steps.prefill()
@@ -535,8 +597,8 @@ class ServingEngine:
         ms: ``prefill_span_ms`` and ``step_span_ms`` (one per decode step)
         are the steps' own spans (CUDA events around each replay on the
         card, ``perf_counter`` on the CPU), and ``rest_ms`` is the wall less
-        those spans: every gap between two steps' events, the prompt's copy
-        to the card, the host's part of sampling and the tokens' copy back.
+        those spans: every gap between two steps' events, the prompt's and
+        the key's copy to the card and the tokens' copy back.
         The three parts add up to the wall exactly: no millisecond is
         counted twice and none is left out."""
         sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)

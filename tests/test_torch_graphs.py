@@ -268,14 +268,20 @@ def test_a_rebalance_captures_at_the_boundary_and_jobs_never_capture(stub_graphs
 
 
 def test_graphs_refuse_topk_sampling(stub_graphs):
-    """A graph's top-k draws are not checked on the card: capturing them
-    raises, with or without an explicit generator, and makes no graph."""
+    """Top-k sampling is no longer refused: its steps are captured once,
+    and each replay reads the job's key from the static buffer, with or
+    without an explicit generator, giving the eager steps' tokens."""
     eng = ServingEngine(get_smoke_config("qwen3-0.6b"),
                         ServeConfig(max_context=32, batch=2, sampler="topk"), device="cpu")
+    prompts = _tokens(7, (2, 8), eng.cfg.vocab)
     for generator in (None, torch.Generator()):
-        with pytest.raises(ValueError, match="topk sampling"):
-            eng.generate(np.zeros((2, 8), np.int32), 2, generator=generator)
-    assert not stub_graphs and not eng._graphs
+        eng.generate(prompts, 2, generator=generator)
+    assert len(stub_graphs) == 2 and set(eng._graphs) == {(8, (None, 0))}
+    replayed = {key: eng.generate(prompts, 4, key=key)[0] for key in (1, 2)}
+    for key, got in replayed.items():
+        np.testing.assert_array_equal(
+            got, eng._generate(prompts, 4, key, (None, 0), eager=True)[0])
+    assert not np.array_equal(replayed[1], replayed[2]) and len(stub_graphs) == 2
 
 
 # ----------------------------------------------------- the held-out script

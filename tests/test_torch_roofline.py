@@ -1,8 +1,9 @@
 """The port's roofline (repro_torch.roofline) on the CPU: the analytic
 MODEL_FLOPS and the report against the JAX package's, the counts of
 ``analyze_step`` against counts worked out by hand, the hand kernels'
-meta counts against ``FlopCounterMode`` over their plain versions, and
-the step-loop weights against the whole loop.
+meta counts against ``FlopCounterMode`` over their plain versions, the
+step-loop weights against the whole loop, and what remat adds to a train
+step's count (the recomputed forward) and takes from its peak.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.kernels.flash_attention import causal_pairs
 from repro_torch.kernels.ref import matmul_ref, mha_flash_ref, selective_scan_ref
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.dryrun import count_step
+from repro_torch.launch.steps import build_bundle
 from repro_torch.models import InputShape
 from repro_torch.roofline import analyze_step, model_flops, roofline_report
 from test_torch_launch import clean_process_state  # noqa: F401  (autouse fixture)
@@ -196,3 +198,56 @@ def test_step_loop_runs_every_step_outside_a_count():
 def test_analyze_step_does_not_nest():
     with pytest.raises(RuntimeError, match="already counting"):
         analyze_step(analyze_step, torch.add, torch.ones(2), torch.ones(2))
+
+
+def _train_count(arch, shape, remat, early_stop=True):
+    """The meta train bundle of ``arch``'s smoke config with ``model.remat``
+    as given, and the counts of its step; ``early_stop`` False makes each
+    recompute run its repeat to the end."""
+    with make_production_mesh() as mesh:
+        bundle = build_bundle(get_smoke_config(arch), shape, mesh)
+        bundle.model.remat = remat
+        with torch.utils.checkpoint.set_checkpoint_early_stop(early_stop):
+            stats, _ = analyze_step(bundle.step_fn, *bundle.args, params=bundle.args[0])
+    return bundle, stats
+
+
+def _repeats_forward_flops(bundle) -> float:
+    """The FLOPs of every repeat's forward alone, on the bundle's model."""
+    model, cfg, shape = bundle.model, bundle.cfg, bundle.shape
+    x = torch.empty((shape.global_batch, shape.seq_len + cfg.n_patches, cfg.d_model),
+                    dtype=model.dtype, device="meta")
+    enc = (torch.empty((shape.global_batch, cfg.enc_ctx, cfg.d_model), dtype=model.dtype,
+                       device="meta") if cfg.is_encoder_decoder else None)
+
+    def repeats():
+        y, aux = x, torch.zeros((), device="meta")
+        for r in range(cfg.n_repeats):
+            y, aux = model._repeat_train(r, y, aux, enc)
+
+    return analyze_step(repeats)[0].flops
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "whisper-base", "xlstm-350m"])
+def test_remat_train_count_grows_by_the_recomputed_forward(arch):
+    """Remat adds each repeat's forward to the train step's FLOPs: exactly,
+    when each recompute runs to the end; by less under torch's default
+    early stop, which ends a recompute at the last tensor backward needs
+    (xlstm's step loops weighted in the recompute as in the forward)."""
+    shape = InputShape("t", 24, 2, "train")
+    _, without = _train_count(arch, shape, remat=False)
+    bundle, whole = _train_count(arch, shape, remat=True, early_stop=False)
+    _, early = _train_count(arch, shape, remat=True)
+    assert whole.flops == without.flops + _repeats_forward_flops(bundle)
+    assert without.flops < early.flops <= whole.flops
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "whisper-base"])
+def test_remat_lowers_the_train_temp_peak(arch):
+    """The dry run's ``temp_bytes`` source, the peak of live bytes the step
+    made, falls with remat once activations outweigh the optimizer's
+    temporaries (8 x 256 tokens at smoke width)."""
+    shape = InputShape("t", 256, 8, "train")
+    with_remat, without = (_train_count(arch, shape, remat)[1].temp_peak_bytes
+                           for remat in (True, False))
+    assert 0 < with_remat < without, (with_remat, without)

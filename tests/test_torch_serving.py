@@ -66,12 +66,12 @@ def test_sample_greedy_is_argmax():
 
 @pytest.mark.parametrize("k", [1, 5, 40])
 def test_sample_topk_support_and_shape(k):
-    """jax.random bits cannot be reproduced: hold support and shape only."""
+    """jax.random bits cannot be reproduced: hold support and shape only
+    (the distribution: tests/test_torch_sampling.py)."""
     logits = torch.randn(4, 3, 100, generator=torch.Generator().manual_seed(0))
-    gen = torch.Generator().manual_seed(1)
     top = torch.topk(logits, k, dim=-1).indices
-    for _ in range(20):
-        got = sample_topk(gen, logits, k=k)
+    for key in range(20):
+        got = sample_topk(key, logits, k=k)
         assert got.shape == (4, 3) and got.dtype == torch.int32
         assert bool((got[..., None].long() == top).any(-1).all())
     if k == 1:

@@ -156,3 +156,26 @@ def test_train_run_calls_no_kernel_wrapper(arch, monkeypatch):
     assert rec["launches"] == {"persistent_matmul": 0, "flash_attention": 0, "selective_scan": 0}
     assert len(rec["losses"]) == len(rec["grad_norms"]) == 3 and int(opt.step) == 3
     assert all(p.grad is not None for n, p in model.named_parameters() if "np" not in n)
+
+
+def test_sampler_chi2_passes_the_sampler_and_fails_a_uniform_one(monkeypatch):
+    """The top-k phase's chi-square check on the CPU at a small vocabulary:
+    ``sample_topk`` passes it by key and by step, every draw in the top k;
+    a sampler uniform over the top k fails it."""
+    from repro_torch.serving import engine as serving_engine
+
+    smoke = _chip_smoke(monkeypatch)
+    logits = torch.randn((2, 1000), generator=torch.Generator().manual_seed(0)) * 2.0
+    for by in ("key", "step"):
+        rows = smoke.sampler_chi2(logits, 2048, by, chunk=512)
+        assert len(rows) == 2
+        assert all(r["outside"] == 0 and r["dof"] > 0 and r["p"] >= smoke.TOPK_P_MIN
+                   for r in rows), rows
+    topk = serving_engine.sample_topk
+
+    def uniform(key, logits, k=40, temperature=0.8, step=0):
+        return topk(key, torch.zeros_like(logits).scatter(
+            -1, torch.topk(logits, k, dim=-1).indices, 1.0), k, temperature, step)
+
+    monkeypatch.setattr(serving_engine, "sample_topk", uniform)
+    assert all(r["p"] < 1e-6 for r in smoke.sampler_chi2(logits, 2048, "key", chunk=512))

@@ -27,7 +27,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.kernels import ops
 from repro_torch.launch import train as launch_train
-from repro_torch.models import Model
+from repro_torch.models import Model, layers
 from repro_torch.train.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, cosine_lr, init_opt_state
 from test_torch_model import MODEL_CONFIGS, _build, tiny_pair
@@ -238,3 +238,94 @@ def test_training_leaves_serving_parameters_without_grad():
     model switches them on."""
     model = Model(get_smoke_config("qwen3-0.6b"), device="cpu")
     assert not any(p.requires_grad for p in model.parameters())
+
+
+# ------------------------------------------------------------------- remat
+
+
+def _loss_and_grads(model, cfg, b=2, s=16, remat=True):
+    """The loss and every parameter's gradient (zeros where unused) of one
+    backward with ``model.remat`` set as given."""
+    tokens, labels, extra = _inputs(cfg, b, s)
+    model.remat = remat
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(torch.as_tensor(tokens), torch.as_tensor(labels),
+                      **{k: torch.as_tensor(v) for k, v in extra.items()})
+    loss.backward()
+    return loss.detach(), {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                           for n, p in model.named_parameters()}
+
+
+def _f32_model(name, seed=0):
+    cfg = _f32(MODEL_CONFIGS[name]())[1]
+    model = Model(cfg, device="cpu")
+    model.init_params(seed)
+    return model.requires_grad_(True)
+
+
+def test_model_remats_by_default():
+    """JAX's ``Model.remat`` is True unless launch/steps overrides it."""
+    assert Model(get_smoke_config("qwen3-0.6b"), device="cpu").remat is True
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_CONFIGS))
+def test_remat_loss_and_grads_equal_without_remat_bitwise(name, no_kernels):
+    """Recomputing each repeat in backward changes no bit of the float32
+    loss or of any gradient (the MoE aux loss carried through each repeat,
+    the encoder outside the checkpoints)."""
+    model = _f32_model(name)
+    loss, grads = _loss_and_grads(model, model.cfg, remat=True)
+    want_loss, want = _loss_and_grads(model, model.cfg, remat=False)
+    assert torch.equal(loss, want_loss)
+    bad = [n for n in want if not torch.equal(grads[n], want[n])]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b-smoke", "whisper-base-smoke"])
+def test_remat_backward_recomputes_each_repeat_without_a_kernel(name, no_kernels,
+                                                                monkeypatch):
+    """Backward runs every repeat a second time, last first; each call
+    starts outside ``plain_products`` (the repeat enters it itself), and no
+    kernel wrapper is reached (each raises)."""
+    model = _f32_model(name)
+    calls = []
+    repeat = Model._repeat_train
+
+    def counted(self, r, *args):
+        calls.append((r, layers._PLAIN.get()))
+        return repeat(self, r, *args)
+
+    monkeypatch.setattr(Model, "_repeat_train", counted)
+    n = model.cfg.n_repeats
+    _, grads = _loss_and_grads(model, model.cfg, remat=True)
+    assert calls == [(r, False) for r in [*range(n), *reversed(range(n))]]
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    calls.clear()
+    _loss_and_grads(model, model.cfg, remat=False)
+    assert calls == [(r, False) for r in range(n)]
+
+
+def _saved_bytes(model, b, s, remat) -> int:
+    """Bytes of the tensors autograd saves for backward in one loss, each
+    storage counted once (``saved_tensors_hooks``)."""
+    tokens, labels, _ = _inputs(model.cfg, b, s)
+    seen: dict = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+        return t
+
+    model.remat = remat
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        model.loss(torch.as_tensor(tokens), torch.as_tensor(labels))
+    return sum(seen.values())
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b-smoke", "jamba-v0.1-52b-smoke"])
+def test_remat_saves_fewer_bytes_for_backward(name):
+    """With remat the repeats' activations are not saved: what autograd
+    keeps for backward falls below half of what it keeps without."""
+    model = _f32_model(name)
+    with_remat, without = (_saved_bytes(model, 4, 64, remat) for remat in (True, False))
+    assert 0 < 2 * with_remat < without, (with_remat, without)
